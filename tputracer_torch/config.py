@@ -1,0 +1,32 @@
+"""Render configuration, field for field the JAX package's ``RenderConfig``.
+
+The same field names and defaults as ``tputracer/config.py`` mean one set
+of values drives both packages (the parity tests build one config and hand
+it to each).  PyTorch runs eagerly, so nothing here is a compile key; the
+dataclass stays frozen so a config can be shared without copies.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    width: int = 512
+    height: int = 512
+    spp: int = 16
+    max_bounces: int = 4          # scatter events; total path verts = +1
+    rr_start: int = 3             # first bounce with Russian roulette
+    seed: int = 0
+    mis: bool = False             # False = NEE only; True = power-heuristic
+                                  # MIS between NEE and BSDF sampling
+    chunk_size: int = 1 << 20     # wavefront paths per chunk (memory knob)
+    transport_radiance: bool = True
+    remat: bool = False           # per-bounce recomputation in backward;
+                                  # not supported by this package yet
+    sort_rays: bool = False       # per-bounce wavefront re-sort (clustered
+                                  # scenes only); not supported yet
+
+    def with_(self, **kw):
+        return replace(self, **kw)
