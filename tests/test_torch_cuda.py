@@ -1,4 +1,9 @@
-"""The CUDA intersection kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
+
+The fused intersection kernel (csrc/intersect.cu) and the cluster-BVH
+traversal kernel (csrc/traverse.cu) must agree bit for bit with their
+plain torch versions, and renders through them with renders through the
+plain versions.
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -11,11 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from tputracer_torch.accel import clustered as cl
 from tputracer_torch.accel import intersect_cuda as ic
-from tputracer_torch.accel import intersect_plain, occluded_plain
+from tputracer_torch.accel import traverse_cuda as tc
+from tputracer_torch.accel import (intersect_clustered, intersect_plain,
+                                   occluded_clustered, occluded_plain)
 from tputracer_torch.config import RenderConfig
 from tputracer_torch.integrators.pt import render_pt
-from tputracer_torch.scene import cornell_box
+from tputracer_torch.scene import cornell_box, mesh_scene
 
 BIG = 3.0e38
 
@@ -75,5 +83,81 @@ def test_cuda_render_goes_through_kernel():
     assert ic.LAUNCHES == launches + 2 * cfg.max_bounces + 1
     img_p, _ = render_pt(sc, cfg, intersect_fn=intersect_plain,
                          occluded_fn=occluded_plain)
+    assert torch.equal(img_k, img_p)
+    assert bool(torch.isfinite(img_k).all()) and float(img_k.mean()) > 0.1
+
+
+def room_rays(n, seed):
+    """Rays from inside mesh_scene's room in random directions; a quarter
+    of the lanes dead; occlusion distances up to 3."""
+    r = np.random.default_rng(seed)
+    o = r.uniform((-1.9, 0.05, -1.9), (1.9, 2.9, 1.9), (n, 3))
+    d = r.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.zeros(n)
+    tmax = np.full(n, BIG)
+    tocc = r.uniform(0.0, 3.0, n)
+    tmax[::4] = 0.0
+    tocc[::4] = 0.0
+    return tuple(torch.from_numpy(x.astype(np.float32)).cuda()
+                 for x in (o, d, tmin, tmax, tocc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_traverse_kernel_matches_plain(any_hit):
+    """The traversal kernel gives the plain walk's t and prim bit for bit
+    at ~100k rays on mesh_scene(subdiv=4); with any_hit the same first
+    hit, so the same occlusion booleans."""
+    need_card()
+    args = cl.traverse_args(mesh_scene(subdiv=4, device="cuda"))
+    o, d, tmin, tmax, tocc = room_rays(100_003, seed=9)
+    if any_hit:
+        tmax = tocc
+    bt0 = tmax.clone()
+    bp0 = torch.full(tmax.shape, -1, dtype=torch.int32, device="cuda")
+    launches = tc.LAUNCHES
+    t_k, p_k = tc.traverse_cuda(o, d, tmin, tmax, bt0, bp0, *args, leaf=128,
+                                any_hit=any_hit)
+    t_p, p_p = cl._traverse(o, d, tmin, tmax, bt0, bp0, *args, leaf=128,
+                            any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES == launches + 1
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(t_k, t_p)
+    assert float((p_k >= 0).float().mean()) > 0.2
+    assert torch.equal(t_k[::4], tmax[::4]) and bool((p_k[::4] == -1).all())
+
+
+@pytest.mark.cuda
+def test_traverse_kernel_spheres_small_leaf():
+    """The sphere preamble and 16-slot leaves, at a ragged ray count."""
+    need_card()
+    sc = cornell_box("spheres", accel="cluster", leaf_size=16, device="cuda")
+    o, d, tmin, tmax, tocc = (x[:1000] for x in random_rays(1000, seed=3))
+    hk = tc.intersect_traverse(sc, o, d, tmin, tmax)
+    hp = intersect_clustered(sc, o, d, tmin, tmax)
+    assert torch.equal(hk.prim, hp.prim) and torch.equal(hk.t, hp.t)
+    assert bool((hk.prim >= sc.n_tri_pad).any())      # spheres were hit
+    assert torch.equal(tc.occluded_traverse(sc, o, d, tocc),
+                       occluded_clustered(sc, o, d, tocc))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_render_goes_through_traversal_kernel():
+    """A 32x32 mesh render on the card launches the traversal kernel
+    2*bounces+1 times per chunk (never the fused kernel) and gives the
+    image of the same render through the plain walk."""
+    need_card()
+    sc = mesh_scene(subdiv=4, device="cuda")
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8,
+                       rr_start=3)
+    launches, fused = tc.LAUNCHES, ic.LAUNCHES
+    img_k, _ = render_pt(sc, cfg)
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES == launches + 2 * cfg.max_bounces + 1
+    assert ic.LAUNCHES == fused
+    img_p, _ = render_pt(sc, cfg, intersect_fn=intersect_clustered,
+                         occluded_fn=occluded_clustered)
     assert torch.equal(img_k, img_p)
     assert bool(torch.isfinite(img_k).all()) and float(img_k.mean()) > 0.1

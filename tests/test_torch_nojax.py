@@ -2,7 +2,8 @@
 
 A fresh interpreter refuses every import of ``jax``, ``jaxlib`` and the JAX
 package ``tputracer``, then imports tputracer_torch, builds the Cornell
-boxes scene and renders it on the CPU.
+boxes scene and renders it on the CPU, then builds a clustered mesh scene
+(with the native BVH builder and with the NumPy one) and renders that.
 """
 
 import os
@@ -39,6 +40,21 @@ img, stats = render(cornell_box("boxes"),
                     RenderConfig(width=8, height=8, spp=1), device="cpu")
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 assert float(img.mean()) > 0.0
+
+# the mesh path: BVH build (native and NumPy), mesh builder, clustered walk
+import os
+from tputracer_torch.accel import bvh
+from tputracer_torch.scene import mesh_scene
+
+for no_native in ("", "1"):
+    os.environ["TPUTRACER_NO_NATIVE"] = no_native
+    mesh = mesh_scene(subdiv=2, leaf_size=32, accel="cluster")
+    assert mesh.n_clusters > 0, mesh.n_clusters
+    print("builder", bvh.LAST_BUILDER)
+img, stats = render(mesh, RenderConfig(width=8, height=8, spp=1),
+                    device="cpu")
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+assert float(img.mean()) > 0.0
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", float(img.mean()))
@@ -51,7 +67,9 @@ def test_port_imports_and_renders_without_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.startswith("OK"), proc.stdout
+    lines = proc.stdout.splitlines()
+    assert lines[-1].startswith("OK"), proc.stdout
+    assert lines[-2] == "builder numpy", proc.stdout
 
 
 def test_blocker_refuses_jax():

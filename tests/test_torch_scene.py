@@ -85,5 +85,10 @@ def test_scene_from_numpy_round_trip(variant):
 
 
 def test_cluster_scenes_not_supported_yet():
-    with pytest.raises(NotImplementedError):
-        cornell_box("boxes", accel="cluster")
+    """Cluster-BVH scenes used to raise NotImplementedError; the port now
+    builds them, tensor-equal to the JAX package's (more in
+    tests/test_torch_bvh.py)."""
+    ts = cornell_box("boxes", accel="cluster", leaf_size=16)
+    assert ts.n_clusters > 0
+    assert_scene_equal(ts, jax_cornell_box("boxes", accel="cluster",
+                                           leaf_size=16))

@@ -1,9 +1,16 @@
-"""Intersection backends, picked by the device of the rays.
+"""Intersection backends, picked by the scene's layout and the rays' device.
 
-CUDA tensors go to the fused CUDA kernel (accel.intersect_cuda); CPU
-tensors go to the brute-force port (accel.bruteforce), the same backend
-the JAX package takes on the CPU.  Scenes with a cluster BVH are not
-supported yet.
+  * scenes with a cluster BVH (scene.n_clusters > 0): CUDA tensors go to
+    the traversal kernel (accel.traverse_cuda), CPU tensors to the plain
+    clustered walk (accel.clustered), as the JAX package takes it on the
+    CPU;
+  * other scenes: CUDA tensors go to the fused intersection kernel
+    (accel.intersect_cuda), CPU tensors to brute force (accel.bruteforce).
+
+``intersect_plain``/``occluded_plain`` and ``intersect_clustered``/
+``occluded_clustered`` run the kernels' plain versions on any device; they
+plug into ``render_pt(..., intersect_fn=..., occluded_fn=...)`` to compare
+a render with its kernel against one without.
 """
 
 from tputracer_torch.accel.bruteforce import (  # noqa: F401
@@ -12,18 +19,23 @@ from tputracer_torch.accel.bruteforce import (  # noqa: F401
     intersect_brute,
     occluded_brute,
 )
+from tputracer_torch.accel.clustered import (  # noqa: F401
+    intersect_clustered,
+    occluded_clustered,
+)
 from tputracer_torch.accel.intersect_cuda import (  # noqa: F401
     intersect_fused,
     intersect_plain,
     occluded_fused,
     occluded_plain,
 )
+from tputracer_torch.accel.traverse_cuda import (  # noqa: F401
+    intersect_traverse,
+    occluded_traverse,
+)
 
 
-def _route(scene, o):
-    if scene.n_clusters:
-        raise NotImplementedError(
-            "clustered scenes are not supported by tputracer_torch yet")
+def _on_card(o):
     if o.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no intersection route for device {o.device}")
     return o.device.type == "cuda"
@@ -31,13 +43,21 @@ def _route(scene, o):
 
 def intersect(scene, o, d, tmin, tmax) -> Hit:
     """Closest hit over the scene."""
-    if _route(scene, o):
+    if scene.n_clusters:
+        if _on_card(o):
+            return intersect_traverse(scene, o, d, tmin, tmax)
+        return intersect_clustered(scene, o, d, tmin, tmax)
+    if _on_card(o):
         return intersect_fused(scene, o, d, tmin, tmax)
     return intersect_brute(scene, o, d, tmin, tmax)
 
 
 def occluded(scene, o, d, tmax):
     """Any-hit shadow predicate."""
-    if _route(scene, o):
+    if scene.n_clusters:
+        if _on_card(o):
+            return occluded_traverse(scene, o, d, tmax)
+        return occluded_clustered(scene, o, d, tmax)
+    if _on_card(o):
         return occluded_fused(scene, o, d, tmax)
     return occluded_brute(scene, o, d, tmax)

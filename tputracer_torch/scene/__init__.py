@@ -9,3 +9,10 @@ from tputracer_torch.scene.types import (  # noqa: F401
     scene_from_numpy,
 )
 from tputracer_torch.scene.cornell import cornell_box, furnace  # noqa: F401
+from tputracer_torch.scene.mesh import (  # noqa: F401
+    load_mtl,
+    load_obj,
+    load_obj_with_materials,
+    mesh_scene,
+    obj_scene,
+)

@@ -71,8 +71,9 @@ class Scene:
     emit_n: torch.Tensor     # (E,3) unit normals (emitting side)
     emit_mat: torch.Tensor   # (E,) int32
 
-    # 2-level cluster BVH bounds; empty (C = 0) for every scene this
-    # package builds so far
+    # 2-level cluster BVH (accel.bvh; empty => brute-force intersection).
+    # Triangle tables are then cluster-major: cluster c owns the slots
+    # [c*leaf_size, (c+1)*leaf_size).
     clus_min: torch.Tensor  # (C,3)
     clus_max: torch.Tensor  # (C,3)
 
@@ -165,28 +166,38 @@ def make_scene(
     device="cpu",
 ):
     """Host-side scene finalization: SoA arrays + Pluecker precompute +
-    padding, moved to ``device``.  Scenes that would get a cluster BVH
-    raise NotImplementedError: this package has no BVH builder yet."""
+    padding, moved to ``device``.  Large meshes (or ``accel="cluster"``)
+    also get the 2-level cluster BVH (accel.bvh): the triangle tables are
+    laid out cluster-major, with one AABB per cluster."""
     tv = np.asarray(tri_vertices, np.float32)
     if tv.ndim != 3 or tv.shape[1:] != (3, 3):
         raise ValueError(f"tri_vertices must be (T,3,3), got {tv.shape}")
     T = tv.shape[0]
 
     if accel == "cluster" or (accel == "auto" and T > cluster_threshold):
-        raise NotImplementedError(
-            "cluster BVH scenes are not supported by tputracer_torch yet")
-    Tp = max(pad_to, int(np.ceil(T / pad_to)) * pad_to)
-    v0 = np.zeros((Tp, 3), np.float32)
-    v1 = np.zeros((Tp, 3), np.float32)
-    v2 = np.zeros((Tp, 3), np.float32)
-    v0[:T], v1[:T], v2[:T] = tv[:, 0], tv[:, 1], tv[:, 2]
-    # padding rows stay degenerate (zeros) and are masked out by tri_mask
-    mat = np.zeros((Tp,), np.int32)
-    mat[:T] = np.asarray(tri_mat, np.int32)
-    mask = np.zeros((Tp,), np.float32)
-    mask[:T] = 1.0
-    cmin = np.zeros((0, 3), np.float32)
-    cmax = np.zeros((0, 3), np.float32)
+        from tputracer_torch.accel.bvh import build_clusters
+
+        perm, mask, cmin, cmax = build_clusters(tv, leaf_size=leaf_size)
+        # padding slots repeat triangle 0; zero their geometry so they are
+        # degenerate (never intersected) and point them at material 0
+        v0 = tv[perm, 0] * mask[:, None]
+        v1 = tv[perm, 1] * mask[:, None]
+        v2 = tv[perm, 2] * mask[:, None]
+        mat = (np.asarray(tri_mat, np.int32)[perm]
+               * (mask > 0)).astype(np.int32)
+    else:
+        Tp = max(pad_to, int(np.ceil(T / pad_to)) * pad_to)
+        v0 = np.zeros((Tp, 3), np.float32)
+        v1 = np.zeros((Tp, 3), np.float32)
+        v2 = np.zeros((Tp, 3), np.float32)
+        v0[:T], v1[:T], v2[:T] = tv[:, 0], tv[:, 1], tv[:, 2]
+        # padding rows stay degenerate (zeros) and are masked out by tri_mask
+        mat = np.zeros((Tp,), np.int32)
+        mat[:T] = np.asarray(tri_mat, np.int32)
+        mask = np.zeros((Tp,), np.float32)
+        mask[:T] = 1.0
+        cmin = np.zeros((0, 3), np.float32)
+        cmax = np.zeros((0, 3), np.float32)
 
     e1 = v1 - v0
     e2 = v2 - v0
