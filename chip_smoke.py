@@ -6,9 +6,9 @@
 Run from the root of a checkout.  Phases, each printing one line:
 
   1. device: needs torch.cuda; prints the card's name and power limit.
-  2. build: compiles both kernels from tputracer_torch/csrc/ (one nvcc per
-     source, started together) and builds the config-3 mesh scene, saying
-     which BVH builder (native or NumPy) ran.
+  2. build: compiles the three sources of tputracer_torch/csrc/ (one nvcc
+     per source, started together) and builds the config-3 mesh scene on
+     the card, saying which BVH builder (native or NumPy) ran.
   3. kernel: the intersection kernel against its plain PyTorch version on
      2^20 random rays (Cornell boxes and spheres, closest and any hit, a
      quarter of the lanes dead), and both timed.
@@ -30,15 +30,33 @@ Run from the root of a checkout.  Phases, each printing one line:
      the plain walk in its place.
   8. mesh parity: mesh_scene(subdiv=4) at 32x32, 4 spp, 8 bounces with the
      kernel, with the plain walk on the card, and on the CPU.
+  9. pairs: the expand and pair-test kernels (the pair route) against their
+     plain versions, bit for bit, on the 102,410-triangle mesh at 2^16
+     camera rays and at 2^16 and 2^18 random rays, closest and any hit; a
+     ragged count; Cornell "spheres" in 16-slot clusters.  The whole route
+     against the traversal kernel: prims equal except at ties, occlusion
+     equal.  Timed at 2^16 and 2^18 rays: expand, pair test, the route and
+     the traversal kernel, each beside its bound; the share of live rays
+     the K slots resolve.
+ 10. pairs render: the config-3 render of phase 7 with TPUTRACER_PAIRS=1
+     (set for this phase only); it must launch the expand, pair-test and
+     traversal kernels 68 times each, the intersection kernel never, give
+     a mean in [0.20, 0.30] and match the default route's image at the
+     golden tolerances.  Timed in turns with the default route.
 
-Then a JSON line of per-kernel results, the card's name and power limit,
-and last {"ok": true, "device": {...}}.  Any failure raises and the script
+Then a JSON line of per-kernel results (each kernel's launches on its main
+path, times, and bound: the larger of the bytes it must move over 3.35
+TB/s and the float ops this run's data needs over 33.5 T ops/s, the
+card's 67 TFLOP/s float32 rate without fused multiply-adds, which the
+kernels are built without), the card's name and power limit, and last
+{"ok": true, "device": {...}}.  Any failure raises and the script
 exits non-zero without that last line; there is no CPU fallback.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -53,6 +71,26 @@ BIG = 3.0e38
 # BASELINE config 3 (benchmarks/run.py): mesh_scene(subdiv=6)
 MESH_CFG = dict(width=256, height=256, spp=4, max_bounces=8, rr_start=3,
                 chunk_size=1 << 16)
+
+
+# the H100's float32 rate without fused multiply-adds (its 67 TFLOP/s
+# counts an FMA as two ops) and its memory rate (SXM data sheet)
+PEAK_OPS = 33.5e12
+PEAK_BYTES = 3.35e12
+# float ops of one test, counted from the CUDA sources: a cluster slab
+# (6 sub, 6 mul, 12 min/max, 4 compares); a Pluecker + plane triangle test
+# (three 6-term dots, 6 sign compares, two 3-term dots, 6 more); a
+# Moeller-Trumbore test (csrc/pairs.cu); a sphere (csrc/intersect.cu)
+OPS_SLAB = 26
+OPS_PLANE = 56
+OPS_MT = 55
+OPS_SPHERE = 24
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time for this work on the card."""
+    t_ops, t_bytes = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 class SmokeFailure(RuntimeError):
@@ -108,23 +146,24 @@ def phase_build():
     from tputracer_torch import cuda_build
     from tputracer_torch.accel import bvh
     from tputracer_torch.accel import intersect_cuda as ic
+    from tputracer_torch.accel import pairs_cuda as pc
     from tputracer_torch.accel import traverse_cuda as tc
     from tputracer_torch.scene import mesh_scene
 
+    sources = ("intersect.cu", "traverse.cu", "pairs.cu")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:     # one nvcc per source, together
-        for job in [pool.submit(ic.load_kernel), pool.submit(tc.load_kernel)]:
+    with ThreadPoolExecutor(3) as pool:     # one nvcc per source, together
+        for job in [pool.submit(m.load_kernel) for m in (ic, tc, pc)]:
             job.result()
     nvcc_s = time.perf_counter() - t0
     ptxas = {src: [ln.strip() for ln in
                    cuda_build.BUILD_LOG.get(src, "").splitlines()
                    if "registers" in ln or "spill" in ln]
-             for src in ("intersect.cu", "traverse.cu")}
+             for src in sources}
     t0 = time.perf_counter()
-    mesh = mesh_scene(subdiv=6)
+    mesh = mesh_scene(subdiv=6, device="cuda")
     emit("build", seconds=round(nvcc_s, 3),
-         nvcc_seconds={k: cuda_build.BUILD_SECONDS.get(k)
-                       for k in ("intersect.cu", "traverse.cu")},
+         nvcc_seconds={k: cuda_build.BUILD_SECONDS.get(k) for k in sources},
          ptxas=ptxas, bvh_builder=bvh.LAST_BUILDER, n_tris=mesh.n_tris,
          n_clusters=mesh.n_clusters, leaf_size=mesh.leaf_size,
          scene_seconds=round(time.perf_counter() - t0, 3))
@@ -179,6 +218,14 @@ def compare_case(variant, any_hit, rays, args):
                    hit_share=float((p_p >= 0).float().mean()))
         check(mism <= 1e-4 * n, f"{variant} closest: {mism} prims differ")
         check(bad_t == 0, f"{variant} closest: {bad_t} t beyond rtol 1e-5")
+        # every live ray tests every valid triangle and sphere
+        sph, plu = args[0], args[1]
+        live = float((tmax > tmin).sum())
+        ops = live * (float((args[4] > 0).sum()) * OPS_PLANE
+                      + sph.shape[0] * OPS_SPHERE)
+        nbytes = n * (6 + 2 + 2) * 4 + 4 * (sph.numel() + plu.numel()
+                                            + 3 * plu.shape[1] + 2 * plu.shape[1])
+        res["bound_ms"], res["bound_by"] = bound(ops, nbytes)
     res["ms"] = cuda_ms(lambda: ic.fused_intersect_cuda(
         o, d, tmin, tmax, *args, any_hit=any_hit), 2, 5)
     res["plain_ms"] = cuda_ms(lambda: ic.fused_intersect_plain(
@@ -214,7 +261,7 @@ def phase_render():
     from tputracer_torch.integrators.pt import render_pt
     from tputracer_torch.scene import cornell_box
 
-    scene = cornell_box("boxes")
+    scene = cornell_box("boxes", device="cuda")
     cfg = RenderConfig(width=512, height=512, spp=16, max_bounces=4)
     n_paths = cfg.width * cfg.height * cfg.spp
     n_chunks = -(-n_paths // cfg.chunk_size)
@@ -280,7 +327,7 @@ def phase_parity():
     from tputracer_torch.scene import cornell_box
 
     cfg = RenderConfig(width=64, height=64, spp=4, max_bounces=4)
-    scene = cornell_box("boxes")
+    scene = cornell_box("boxes", device="cpu")
     sc = scene.to("cuda")
     img_k = render_pt(sc, cfg)[0].cpu().numpy()
     img_p = render_pt(sc, cfg, intersect_fn=intersect_plain,
@@ -361,10 +408,34 @@ def traverse_case(rays_name, any_hit, rays, args, leaf, timed=True):
         res["occluded_mismatch"] = occ_mism
         check(occ_mism == 0, f"traverse {rays_name}: {occ_mism} occlusion "
                              f"booleans differ")
+    else:
+        res["bound_ms"], res["bound_by"] = walk_bound(o, d, tmin, tmax, t_p,
+                                                      args, leaf)
     if timed:
         res["ms"] = cuda_ms(kernel, 2, 5)
         res["plain_ms"] = cuda_ms(plain, 1, 3)
     return res
+
+
+def walk_bound(o, d, tmin, tmax, t_final, args, leaf):
+    """Least work of a closest-hit walk on this data: one slab scan of all
+    C boxes per live ray, and a plane test of every valid slot of each
+    cluster entered before the ray's final hit."""
+    from tputracer_torch.accel import clustered as cl
+
+    cmin, cmax, plu, mask = args[0], args[1], args[2], args[5]
+    C, T = cmin.shape[0], plu.shape[1]
+    valid = (mask > 0).float().reshape(C, leaf).sum(1)
+    live = tmax > tmin
+    tests = 0.0
+    for r0 in range(0, o.shape[0], 1 << 13):
+        rs = slice(r0, r0 + (1 << 13))
+        te = cl.cluster_entries(o[rs], d[rs], tmin[rs], tmax[rs], cmin, cmax)
+        seen = (te < t_final[rs, None]) & live[rs, None]
+        tests += float((seen.float() @ valid).sum())
+    ops = float(live.sum()) * C * OPS_SLAB + tests * OPS_PLANE
+    nbytes = 4 * (12 * o.shape[0] + 6 * C + 23 * T)
+    return bound(ops, nbytes)
 
 
 def phase_traverse(mesh):
@@ -460,7 +531,7 @@ def phase_mesh_render(mesh):
          flat_rays_per_s=flat / render_s, issued_rays=issued,
          issued_rays_per_s=issued / render_s,
          plain_render_s_once=plain_s, peak_mem_gb=peak_gb)
-    return launches
+    return launches, img.cpu().numpy()
 
 
 def phase_mesh_parity():
@@ -470,7 +541,7 @@ def phase_mesh_parity():
     from tputracer_torch.scene import mesh_scene
 
     cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8, rr_start=3)
-    scene = mesh_scene(subdiv=4)
+    scene = mesh_scene(subdiv=4, device="cpu")
     sc = scene.to("cuda")
     img_k = render_pt(sc, cfg)[0].cpu().numpy()
     img_p = render_pt(sc, cfg, intersect_fn=intersect_clustered,
@@ -484,6 +555,241 @@ def phase_mesh_parity():
          mean=float(img_k.mean()))
 
 
+def skew_bound(sc, o, d, prim, t):
+    """How far the plane test and Moeller-Trumbore may place the same hit
+    apart: 1e-6 |t| plus four times the two formulas' rounding bounds
+    (accel.pairs.rounding_bounds).  Sphere hits come from one preamble in
+    both routes: 1e-6 |t|."""
+    from tputracer_torch.accel.pairs import rounding_bounds
+
+    tri = (prim >= 0) & (prim < sc.n_tri_pad)
+    plane, mt = rounding_bounds(sc, o, d, prim.clamp(0, sc.n_tri_pad - 1), t)
+    rel = 1e-6 * t.double().abs()
+    return torch.where(tri, rel + 4.0 * (plane + mt), rel).float()
+
+
+def pairs_case(name, sc, rays, any_hit, timed):
+    """The expand and pair-test kernels against their plain versions on one
+    ray set and mode, bit for bit, and the whole pair route against the
+    traversal kernel; with ``timed``, each timed beside its bound."""
+    from tputracer_torch.accel import clustered as cl
+    from tputracer_torch.accel import pairs
+    from tputracer_torch.accel import pairs_cuda as pc
+    from tputracer_torch.accel import traverse_cuda as tc
+
+    o, d, tmin, tmax, tocc = rays
+    if any_hit:
+        tmin, tmax = torch.zeros_like(tocc), tocc
+    n, k, leaf, C = o.shape[0], pairs.K, sc.leaf_size, sc.n_clusters
+    cmin, cmax, v0, e1, e2, mask = pairs.pairs_args(sc)
+    bt0, bp0 = cl._sphere_best(sc, o, d, tmin, tmax)
+    bt0 = torch.minimum(bt0, tmax)
+
+    def expand_k():
+        return pc.expand_cuda(o, d, tmin, tmax, cmin, cmax, k=k)
+
+    def expand_p():
+        return pairs.expand_plain(o, d, tmin, tmax, cmin, cmax, k=k)
+
+    cid, te, bnd = expand_k()
+    cid_p, te_p, bnd_p = expand_p()
+    torch.cuda.synchronize()
+    res = {"rays": name, "n_rays": n, "mode": "any" if any_hit else "closest",
+           "scene": f"{sc.n_tris} tris, {C} clusters of {leaf}",
+           "expand_mismatch": {
+               "cid": int((cid != cid_p).sum()), "te": int((te != te_p).sum()),
+               "bound": int((bnd != bnd_p).sum())}}
+    check(sum(res["expand_mismatch"].values()) == 0,
+          f"pairs {name}: expand differs from its plain version "
+          f"{res['expand_mismatch']}")
+    res["expand_max_abs_err"] = max(
+        float((te - te_p).abs().max()), float((bnd - bnd_p).abs().max()))
+
+    # the pairs as the route's glue builds them
+    flat = cid.reshape(n * k)
+    _, sidx = torch.sort(torch.where(flat >= 0, flat, C + 1), stable=True)
+    ray = sidx // k
+    pargs = (o[ray], d[ray], tmin[ray], flat[sidx],
+             te.reshape(n * k)[sidx], bt0[ray], v0, e1, e2, mask)
+
+    def test_k():
+        return pc.pairtest_cuda(*pargs, leaf=leaf)
+
+    def test_p():
+        return pairs.pairtest_plain(*pargs, leaf=leaf)
+
+    t_k, p_k = test_k()
+    t_p, p_p = test_p()
+    torch.cuda.synchronize()
+    res["pairtest_mismatch"] = {"t": int((t_k != t_p).sum()),
+                                "p": int((p_k != p_p).sum())}
+    check(sum(res["pairtest_mismatch"].values()) == 0,
+          f"pairs {name}: pair test differs from its plain version "
+          f"{res['pairtest_mismatch']}")
+    hit = p_p >= 0
+    res["pairtest_max_abs_err"] = (float((t_k - t_p).abs()[hit].max())
+                                   if bool(hit.any()) else 0.0)
+    wanted = (pargs[4] < pargs[5]) & (pargs[3] >= 0)
+    res["pairs"] = n * k
+    res["wanted_pairs"] = int(wanted.sum())
+
+    # the whole route against the traversal kernel
+    def route():
+        return pairs._pair_traverse(sc, o, d, tmin, tmax, bt0, bp0, any_hit)
+
+    targs = cl.traverse_args(sc)
+
+    def walk():
+        return tc.traverse_cuda(o, d, tmin, tmax, bt0, bp0, *targs,
+                                leaf=leaf, any_hit=any_hit)
+
+    t_r, p_r = route()
+    t_w, p_w = walk()
+    _, _, resolved = pairs._slot_best(sc, o, d, tmin, tmax, bt0, bp0,
+                                      any_hit)
+    torch.cuda.synchronize()
+    live = tmax > tmin
+    res["resolved_share"] = float(resolved[live].float().mean())
+    if any_hit:
+        occ = int(((t_r < tmax) != (t_w < tmax)).sum())
+        res["route_occluded_mismatch"] = occ
+        check(occ == 0, f"pairs {name}: {occ} occlusion booleans differ "
+                        f"from the traversal kernel")
+    else:
+        # slot hits are Moeller-Trumbore, the walk's the plane test: t agree
+        # to within both formulas' rounding, and a prim may differ only
+        # where the two hits tie to within that
+        hit = p_w >= 0
+        ratio = ((t_r - t_w).abs() / skew_bound(sc, o, d, p_w, t_w))[hit]
+        close = torch.zeros_like(hit)
+        close[hit] = ratio <= 1.0
+        res["route_prim_mismatch"] = int((p_r != p_w).sum())
+        res["route_t_beyond_tol"] = int((hit & ~close).sum())
+        res["route_t_err_over_bound"] = float(ratio.max())
+        check(res["route_t_beyond_tol"] == 0 and res["route_prim_mismatch"]
+              == int(((p_r != p_w) & close).sum()) and
+              res["route_prim_mismatch"] <= 1e-4 * n,
+              f"pairs {name}: the route differs from the traversal kernel "
+              f"beyond ties {res}")
+    res["hit_share"] = float((p_w >= 0).float().mean())
+    if not timed:
+        return res
+
+    valid = (mask > 0).float().reshape(C, leaf).sum(1)
+    slots = float(valid[pargs[3][wanted].long()].sum())
+    res["expand_bound_ms"], res["expand_bound_by"] = bound(
+        float(live.sum()) * C * OPS_SLAB,
+        4 * (n * (8 + 2 * k + 1) + 6 * C))
+    res["pairtest_bound_ms"], res["pairtest_bound_by"] = bound(
+        slots * OPS_MT, 4 * (n * k * 12 + 10 * mask.shape[0]))
+    res["expand_ms"] = cuda_ms(expand_k, 2, 5)
+    res["expand_plain_ms"] = cuda_ms(expand_p, 1, 3)
+    res["pairtest_ms"] = cuda_ms(test_k, 2, 5)
+    res["pairtest_plain_ms"] = cuda_ms(test_p, 1, 3)
+    res["route_ms"] = cuda_ms(route, 2, 5)
+    res["traverse_ms"] = cuda_ms(walk, 2, 5)
+    if not any_hit:
+        res["traverse_bound_ms"], res["traverse_bound_by"] = walk_bound(
+            o, d, tmin, tmax, t_w, targs, leaf)
+    return res
+
+
+def phase_pairs(mesh):
+    """The pair route's two kernels against their plain versions, and the
+    route against the traversal kernel, at config-3 chunk sizes."""
+    from tputracer_torch.scene import cornell_box
+
+    results = []
+    sets = [("camera", mesh_camera_rays(mesh, seed=5)),
+            ("random", room_rays(N_CHUNK, seed=6)),
+            ("random 2^18", room_rays(4 * N_CHUNK, seed=9))]
+    for name, rays in sets:
+        for any_hit in (False, True):
+            res = pairs_case(name, mesh, rays, any_hit, timed=True)
+            results.append(res)
+            emit("pairs", **res)
+    # a ragged count: the last block is partly out of range
+    small = tuple(x[:1000] for x in room_rays(N_CHUNK, seed=7))
+    emit("pairs", **pairs_case("ragged", mesh, small, False, timed=False))
+    # spheres (bt0 from the preamble) and 16-slot leaves
+    sph = cornell_box("spheres", accel="cluster", leaf_size=16,
+                      device="cuda")
+    for any_hit in (False, True):
+        emit("pairs", **pairs_case("spheres leaf 16", sph,
+                                   random_rays(N_CHUNK, seed=8), any_hit,
+                                   timed=False))
+    return results
+
+
+def phase_pairs_render(mesh, default_img):
+    """The config-3 render through the pair route (TPUTRACER_PAIRS=1, set
+    for this phase only), counted, checked and timed in turns with the
+    default route."""
+    from tputracer_torch.accel import intersect_cuda as ic
+    from tputracer_torch.accel import pairs_cuda as pc
+    from tputracer_torch.accel import traverse_cuda as tc
+    from tputracer_torch.api import render
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.integrators.pt import render_pt
+
+    cfg = RenderConfig(**MESH_CFG)
+    n_chunks = -(-cfg.width * cfg.height * cfg.spp // cfg.chunk_size)
+    want = n_chunks * (2 * cfg.max_bounces + 1)
+    before = os.environ.get("TPUTRACER_PAIRS")
+
+    def set_pairs(on):
+        if on:
+            os.environ["TPUTRACER_PAIRS"] = "1"
+        else:
+            os.environ.pop("TPUTRACER_PAIRS", None)
+
+    try:
+        set_pairs(True)
+        # the pair route, counted: exactly this one call to render
+        pc.EXPAND_LAUNCHES = pc.PAIRTEST_LAUNCHES = 0
+        tc.LAUNCHES = ic.LAUNCHES = 0
+        img, stats = render(mesh, cfg, device="cuda")
+        torch.cuda.synchronize()
+        launches = {"expand": pc.EXPAND_LAUNCHES,
+                    "pair_test": pc.PAIRTEST_LAUNCHES,
+                    "traverse": tc.LAUNCHES, "fused_intersect": ic.LAUNCHES}
+        check(launches == {"expand": want, "pair_test": want,
+                           "traverse": want, "fused_intersect": 0},
+              f"pairs render launched {launches}, expected {want} of each "
+              f"route kernel and no intersection kernel")
+        check(bool(torch.isfinite(img).all()),
+              "pairs render has non-finite pixels")
+        img = img.cpu().numpy()
+        mean = float(img.mean())
+        check(0.20 <= mean <= 0.30,
+              f"pairs render mean {mean} outside [0.20, 0.30]")
+        parity = golden_compare("default route", img, default_img)
+
+        def run(on):
+            set_pairs(on)
+            return cuda_ms(lambda: render_pt(mesh, cfg), 0, 1) / 1e3
+
+        run(True)   # warm-up of both routes
+        run(False)
+        pairs_s, default_s = [], []
+        for _ in range(3):   # in turns, so drift hits both alike
+            pairs_s.append(run(True))
+            default_s.append(run(False))
+    finally:
+        if before is None:
+            os.environ.pop("TPUTRACER_PAIRS", None)
+        else:
+            os.environ["TPUTRACER_PAIRS"] = before
+    emit("pairs_render", config="mesh subdiv=6 256x256 4spp 8 bounces rr 3",
+         launches=launches, mean=mean, parity=parity,
+         render_s=statistics.median(pairs_s), render_s_all=pairs_s,
+         default_render_s=statistics.median(default_s),
+         default_render_s_all=default_s,
+         issued_rays=float(stats["rays_closest"].sum()
+                           + stats["rays_shadow"].sum()))
+    return launches
+
+
 def main():
     phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
@@ -493,11 +799,15 @@ def main():
     launches = phase_render()
     phase_parity()
     t_results, t_max_abs = phase_traverse(mesh)
-    t_launches = phase_mesh_render(mesh)
+    t_launches, mesh_img = phase_mesh_render(mesh)
     phase_mesh_parity()
+    p_results = phase_pairs(mesh)
+    p_launches = phase_pairs_render(mesh, mesh_img)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
     t_case = next(r for r in t_results
+                  if r["rays"] == "random" and r["mode"] == "closest")
+    p_case = next(r for r in p_results
                   if r["rays"] == "random" and r["mode"] == "closest")
     print(json.dumps({"kernels": [{
         "name": "fused_intersect",
@@ -508,6 +818,9 @@ def main():
         "max_abs_err": max_abs,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": None,
     }, {
         "name": "traverse",
         "route": "cuda",
@@ -517,6 +830,33 @@ def main():
         "max_abs_err": t_max_abs,
         "ms": t_case["ms"],
         "plain_ms": t_case["plain_ms"],
+        "bound_ms": t_case["bound_ms"],
+        "bound_by": t_case["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "pair_expand",
+        "route": "cuda",
+        "source": "tputracer_torch/csrc/pairs.cu",
+        "replaces": "tputracer/accel/pairs_tpu.py:66",
+        "launches": p_launches["expand"],
+        "max_abs_err": max(r["expand_max_abs_err"] for r in p_results),
+        "ms": p_case["expand_ms"],
+        "plain_ms": p_case["expand_plain_ms"],
+        "bound_ms": p_case["expand_bound_ms"],
+        "bound_by": p_case["expand_bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "pair_test",
+        "route": "cuda",
+        "source": "tputracer_torch/csrc/pairs.cu",
+        "replaces": "tputracer/accel/pairs_tpu.py:139",
+        "launches": p_launches["pair_test"],
+        "max_abs_err": max(r["pairtest_max_abs_err"] for r in p_results),
+        "ms": p_case["pairtest_ms"],
+        "plain_ms": p_case["pairtest_plain_ms"],
+        "bound_ms": p_case["pairtest_bound_ms"],
+        "bound_by": p_case["pairtest_bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -119,7 +119,9 @@ def random_scene_both(n_tris=257, n_spheres=2, seed=0, leaf_size=16):
                ((-0.4, -0.2, 0.3), 0.2, 1)][:n_spheres]
     cam = ((0, 0, -3), (0, 0, 0), (0, 1, 0), 40.0, 1.0)
     kw = dict(spheres=spheres, accel="cluster", leaf_size=leaf_size)
-    return (make_scene(tv, mats, materials, camera=make_camera(*cam), **kw),
+    return (make_scene(tv, mats, materials,
+                       camera=make_camera(*cam, device="cpu"), device="cpu",
+                       **kw),
             jax_make_scene(tv, mats, materials, camera=jax_make_camera(*cam),
                            **kw))
 
@@ -138,7 +140,7 @@ def test_make_scene_cluster_matches_jax(n_spheres, leaf):
 @pytest.mark.parametrize("subdiv, leaf, accel", [(3, 32, "cluster"),
                                                  (4, 128, "auto")])
 def test_mesh_scene_matches_jax(subdiv, leaf, accel):
-    ts = mesh_scene(subdiv=subdiv, leaf_size=leaf, accel=accel)
+    ts = mesh_scene(subdiv=subdiv, leaf_size=leaf, accel=accel, device="cpu")
     js = jax_mesh_scene(subdiv=subdiv, leaf_size=leaf, accel=accel)
     assert ts.n_clusters > 8
     assert_scene_equal(ts, js)
@@ -146,13 +148,14 @@ def test_mesh_scene_matches_jax(subdiv, leaf, accel):
 
 def test_mesh_scene_small_stays_unclustered_on_auto():
     """Below the 2,048-triangle threshold "auto" keeps brute force."""
-    ts = mesh_scene(subdiv=2)
+    ts = mesh_scene(subdiv=2, device="cpu")
     assert ts.n_clusters == 0
     assert_scene_equal(ts, jax_mesh_scene(subdiv=2))
 
 
 def test_cornell_cluster_matches_jax():
-    assert_scene_equal(cornell_box("spheres", accel="cluster", leaf_size=16),
+    assert_scene_equal(cornell_box("spheres", accel="cluster", leaf_size=16,
+                                   device="cpu"),
                        jax_cornell_box("spheres", accel="cluster",
                                        leaf_size=16))
 
@@ -164,7 +167,7 @@ def test_obj_loader_roundtrip():
     np.testing.assert_array_equal(tv, jax_load_obj(OBJ))
     np.testing.assert_array_equal(load_obj(OBJ, flip_winding=True),
                                   jax_load_obj(OBJ, flip_winding=True))
-    scene = obj_scene(OBJ, accel="none")
+    scene = obj_scene(OBJ, accel="none", device="cpu")
     assert scene.n_tris == 4
     assert_scene_equal(scene, jax_obj_scene(OBJ, accel="none"))
 
@@ -185,7 +188,7 @@ def test_obj_mtl_materials():
     np.testing.assert_array_equal(mats, jmats)
     assert materials == jmaterials
 
-    sc = obj_scene(OBJ_MTL, mtl_source=MTL)
+    sc = obj_scene(OBJ_MTL, mtl_source=MTL, device="cpu")
     assert sc.n_emitters > 0
     assert_scene_equal(sc, jax_obj_scene(OBJ_MTL, mtl_source=MTL))
     img, _ = render(sc, RenderConfig(width=8, height=8, spp=2,
@@ -205,5 +208,6 @@ def test_obj_files_with_mtllib(tmp_path):
     assert materials == jmaterials
     assert [materials[m]["kind"] for m in mats] == [DIFFUSE, DIFFUSE, MIRROR,
                                                     GLASS]
-    assert_scene_equal(obj_scene(str(obj), accel="cluster", leaf_size=16),
+    assert_scene_equal(obj_scene(str(obj), accel="cluster", leaf_size=16,
+                                 device="cpu"),
                        jax_obj_scene(str(obj), accel="cluster", leaf_size=16))

@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain versions, on the card.
 
-The fused intersection kernel (csrc/intersect.cu) and the cluster-BVH
-traversal kernel (csrc/traverse.cu) must agree bit for bit with their
-plain torch versions, and renders through them with renders through the
-plain versions.
+The fused intersection kernel (csrc/intersect.cu), the cluster-BVH
+traversal kernel (csrc/traverse.cu) and the pair route's expand and
+pair-test kernels (csrc/pairs.cu) must agree bit for bit with their plain
+torch versions, and renders through them with renders through the plain
+versions (or, for the pair route, with the default route).
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -18,6 +19,8 @@ import torch
 
 from tputracer_torch.accel import clustered as cl
 from tputracer_torch.accel import intersect_cuda as ic
+from tputracer_torch.accel import pairs
+from tputracer_torch.accel import pairs_cuda as pc
 from tputracer_torch.accel import traverse_cuda as tc
 from tputracer_torch.accel import (intersect_clustered, intersect_plain,
                                    occluded_clustered, occluded_plain)
@@ -161,3 +164,109 @@ def test_cuda_mesh_render_goes_through_traversal_kernel():
                          occluded_fn=occluded_clustered)
     assert torch.equal(img_k, img_p)
     assert bool(torch.isfinite(img_k).all()) and float(img_k.mean()) > 0.1
+
+
+def mesh_pairs(sc, o, d, tmin, tmax, k):
+    """The expand kernel's output and the pairs the route's glue builds
+    from it (bt = tmax: the mesh has no spheres)."""
+    cmin, cmax, v0, e1, e2, mask = pairs.pairs_args(sc)
+    cid, te, bound = pc.expand_cuda(o, d, tmin, tmax, cmin, cmax, k=k)
+    flat = cid.reshape(-1)
+    _, sidx = torch.sort(torch.where(flat >= 0, flat, sc.n_clusters + 1),
+                         stable=True)
+    ray = sidx // k
+    return (cid, te, bound), (o[ray], d[ray], tmin[ray], flat[sidx],
+                              te.reshape(-1)[sidx], tmax[ray], v0, e1, e2,
+                              mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 7, 12])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_expand_kernel_matches_plain(any_hit, k):
+    """The expand kernel gives expand_plain's slots and bound bit for bit
+    at ~100k rays on mesh_scene(subdiv=4), for K in each of the kernel's
+    three buffer sizes; dead lanes get no slot."""
+    need_card()
+    sc = mesh_scene(subdiv=4, device="cuda")
+    o, d, tmin, tmax, tocc = room_rays(100_003, seed=11)
+    if any_hit:
+        tmax = tocc
+    cmin, cmax = pairs.pairs_args(sc)[:2]
+    launches = pc.EXPAND_LAUNCHES
+    got = pc.expand_cuda(o, d, tmin, tmax, cmin, cmax, k=k)
+    want = pairs.expand_plain(o, d, tmin, tmax, cmin, cmax, k=k)
+    torch.cuda.synchronize()
+    assert pc.EXPAND_LAUNCHES == launches + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool((got[0][::4] == -1).all())
+    if k == 4:   # some rays admit more than K clusters
+        assert float((got[2] < BIG).float().mean()) > 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_pairtest_kernel_matches_plain(any_hit):
+    """The pair-test kernel gives pairtest_plain's t and p bit for bit on
+    the cluster-sorted pairs of ~100k rays."""
+    need_card()
+    sc = mesh_scene(subdiv=4, device="cuda")
+    o, d, tmin, tmax, tocc = room_rays(100_003, seed=12)
+    if any_hit:
+        tmax = tocc
+    _, args = mesh_pairs(sc, o, d, tmin, tmax, pairs.K)
+    launches = pc.PAIRTEST_LAUNCHES
+    t_k, p_k = pc.pairtest_cuda(*args, leaf=sc.leaf_size)
+    t_p, p_p = pairs.pairtest_plain(*args, leaf=sc.leaf_size)
+    torch.cuda.synchronize()
+    assert pc.PAIRTEST_LAUNCHES == launches + 1
+    assert torch.equal(p_k, p_p) and torch.equal(t_k, t_p)
+    assert int((p_k >= 0).sum()) > 10_000
+
+
+@pytest.mark.cuda
+def test_pair_route_matches_traverse_kernel():
+    """The whole pair route against the traversal kernel: t within 1e-6
+    |t| plus four times the two triangle tests' rounding bounds (the slots
+    test by Moeller-Trumbore, the walk by the plane equation), the same
+    prim except where two hits tie to within that, and the same occlusion
+    booleans."""
+    need_card()
+    sc = mesh_scene(subdiv=4, device="cuda")
+    o, d, tmin, tmax, tocc = room_rays(100_003, seed=13)
+    hp = pairs.intersect_pairs(sc, o, d, tmin, tmax)
+    ht = tc.intersect_traverse(sc, o, d, tmin, tmax)
+    assert torch.equal(hp.valid, ht.valid)
+    v = ht.valid
+    plane, mt = pairs.rounding_bounds(sc, o[v], d[v], ht.prim[v], ht.t[v])
+    tol = 1e-6 * ht.t[v].abs() + 4.0 * (plane + mt).float()
+    assert bool(((hp.t[v] - ht.t[v]).abs() <= tol).all())
+    assert int((hp.prim[v] != ht.prim[v]).sum()) <= 10
+    assert torch.equal(pairs.occluded_pairs(sc, o, d, tocc),
+                       tc.occluded_traverse(sc, o, d, tocc))
+
+
+@pytest.mark.cuda
+def test_pairs_render_goes_through_pair_kernels(monkeypatch):
+    """With TPUTRACER_PAIRS=1 a mesh render on the card launches the
+    expand, pair-test and traversal kernels 2*bounces+1 times each per
+    chunk and gives the default route's image at the golden tolerances."""
+    need_card()
+    sc = mesh_scene(subdiv=4, device="cuda")
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8,
+                       rr_start=3)
+    img_d, _ = render_pt(sc, cfg)
+    monkeypatch.setenv("TPUTRACER_PAIRS", "1")
+    before = (pc.EXPAND_LAUNCHES, pc.PAIRTEST_LAUNCHES, tc.LAUNCHES,
+              ic.LAUNCHES)
+    img_p, _ = render_pt(sc, cfg)
+    torch.cuda.synchronize()
+    n = 2 * cfg.max_bounces + 1
+    assert (pc.EXPAND_LAUNCHES, pc.PAIRTEST_LAUNCHES, tc.LAUNCHES,
+            ic.LAUNCHES) == (before[0] + n, before[1] + n, before[2] + n,
+                             before[3])
+    img_p, img_d = img_p.cpu().numpy(), img_d.cpu().numpy()
+    rel = np.abs(img_p - img_d) / (1.0 + np.abs(img_d))
+    assert float(rel.mean()) < 5e-4 and float((rel > 5e-3).mean()) < 0.01
+    assert float(img_p.mean()) > 0.1

@@ -94,7 +94,7 @@ def assert_t_close(scene, o, d, prim, t_got, t_want):
 
 @pytest.mark.parametrize("variant", ["boxes", "spheres", "glass_sphere"])
 def test_brute_matches_jax(variant):
-    js, ts = jax_cornell_box(variant), cornell_box(variant)
+    js, ts = jax_cornell_box(variant), cornell_box(variant, device="cpu")
     o, d, tmin, tmax, tocc = random_rays(3000, seed=11)
     hj = jax_intersect_brute(js, *jax_args(o, d, tmin, tmax))
     ht = intersect_brute(ts, *torch_args(o, d, tmin, tmax))
@@ -115,7 +115,7 @@ def test_brute_matches_jax(variant):
 
 @pytest.mark.parametrize("variant", ["boxes", "spheres"])
 def test_fused_plain_matches_pallas_interpret(variant):
-    js, ts = jax_cornell_box(variant), cornell_box(variant)
+    js, ts = jax_cornell_box(variant), cornell_box(variant, device="cpu")
     o, d, tmin, tmax, tocc = random_rays(2000, seed=23)
     hj = jax_intersect_fused(js, *jax_args(o, d, tmin, tmax), interpret=True)
     ht = intersect_fused(ts, *torch_args(o, d, tmin, tmax))   # CPU: plain
@@ -139,7 +139,7 @@ def test_fused_plain_matches_pallas_interpret(variant):
 def test_fused_plain_matches_brute(variant):
     """The two CPU backends agree: same prim, same t on triangle hits and
     within rounding on sphere hits; the any-hit booleans are equal."""
-    ts = cornell_box(variant)
+    ts = cornell_box(variant, device="cpu")
     o, d, tmin, tmax, tocc = random_rays(3000, seed=5, dead_every=3)
     hb = intersect_brute(ts, *torch_args(o, d, tmin, tmax))
     hf = intersect_fused(ts, *torch_args(o, d, tmin, tmax))
@@ -186,7 +186,7 @@ def test_fused_plain_ties_and_ragged_blocks():
 
 
 def test_dispatch_on_cpu_takes_brute_force():
-    ts = cornell_box("spheres")
+    ts = cornell_box("spheres", device="cpu")
     o, d, tmin, tmax, tocc = torch_args(*random_rays(500, seed=3))
     a, b = intersect(ts, o, d, tmin, tmax), intersect_brute(ts, o, d, tmin, tmax)
     assert torch.equal(a.prim, b.prim) and torch.equal(a.t, b.t)
@@ -194,7 +194,7 @@ def test_dispatch_on_cpu_takes_brute_force():
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
-    ts = cornell_box("boxes")
+    ts = cornell_box("boxes", device="cpu")
     o, d, tmin, tmax, _ = torch_args(*random_rays(8, seed=1))
     launches = ic.LAUNCHES
     with pytest.raises(ValueError):

@@ -40,7 +40,7 @@ MESH = [
 @pytest.mark.parametrize("kw", MESH, ids=["nee", "mis"])
 def test_mesh_render_matches_jax(kw):
     js = jax_mesh_scene(subdiv=3, leaf_size=32, accel="cluster")
-    ts = mesh_scene(subdiv=3, leaf_size=32, accel="cluster")
+    ts = mesh_scene(subdiv=3, leaf_size=32, accel="cluster", device="cpu")
     assert ts.n_clusters > 8
     img_j, stats_j = jax_render(js, JaxRenderConfig(**kw))
     img_t, stats_t = render(ts, RenderConfig(**kw))
@@ -52,7 +52,7 @@ def test_mesh_render_matches_jax(kw):
 
 
 def test_mesh_render_chunking_is_invisible():
-    ts = mesh_scene(subdiv=2, leaf_size=32, accel="cluster")
+    ts = mesh_scene(subdiv=2, leaf_size=32, accel="cluster", device="cpu")
     cfg = RenderConfig(width=8, height=8, spp=2, max_bounces=3)
     a, _ = render(ts, cfg)
     b, _ = render(ts, cfg.with_(chunk_size=32))

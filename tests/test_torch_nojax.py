@@ -36,7 +36,7 @@ from tputracer_torch.config import RenderConfig
 from tputracer_torch.scene import cornell_box
 
 torch.set_num_threads(2)
-img, stats = render(cornell_box("boxes"),
+img, stats = render(cornell_box("boxes", device="cpu"),
                     RenderConfig(width=8, height=8, spp=1), device="cpu")
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 assert float(img.mean()) > 0.0
@@ -48,7 +48,7 @@ from tputracer_torch.scene import mesh_scene
 
 for no_native in ("", "1"):
     os.environ["TPUTRACER_NO_NATIVE"] = no_native
-    mesh = mesh_scene(subdiv=2, leaf_size=32, accel="cluster")
+    mesh = mesh_scene(subdiv=2, leaf_size=32, accel="cluster", device="cpu")
     assert mesh.n_clusters > 0, mesh.n_clusters
     print("builder", bvh.LAST_BUILDER)
 img, stats = render(mesh, RenderConfig(width=8, height=8, spp=1),

@@ -57,7 +57,8 @@ GOLDEN = [
                          ids=["boxes", "spheres", "boxes_mis", "spheres_mis"])
 def test_render_matches_jax(variant, kw):
     img_j, stats_j = jax_render(jax_cornell_box(variant), JaxRenderConfig(**kw))
-    img_t, stats_t = render(cornell_box(variant), RenderConfig(**kw))
+    img_t, stats_t = render(cornell_box(variant, device="cpu"),
+                            RenderConfig(**kw))
     assert img_t.shape == (kw["height"], kw["width"], 3)
     assert img_t.dtype == torch.float32
     golden_compare(img_t.numpy(), np.asarray(img_j))
@@ -70,15 +71,16 @@ def test_render_chunking_is_invisible():
     """uids are global, so splitting the wavefront into chunks changes
     nothing."""
     cfg = RenderConfig(width=8, height=8, spp=2, max_bounces=3)
-    a, _ = render(cornell_box("boxes"), cfg)
-    b, _ = render(cornell_box("boxes"), cfg.with_(chunk_size=32))
+    a, _ = render(cornell_box("boxes", device="cpu"), cfg)
+    b, _ = render(cornell_box("boxes", device="cpu"), cfg.with_(chunk_size=32))
     assert torch.equal(a, b)
 
 
 def test_render_unsupported_options_raise():
     for kw in (dict(sort_rays=True), dict(remat=True)):
         with pytest.raises(NotImplementedError):
-            render(cornell_box("boxes"), width=4, height=4, spp=1, **kw)
+            render(cornell_box("boxes", device="cpu"), width=4, height=4,
+                   spp=1, **kw)
 
 
 def shading_inputs(n, seed, n_mat):
@@ -100,7 +102,7 @@ def both(*xs):
 
 @pytest.mark.parametrize("variant", ["spheres", "boxes"])
 def test_bsdf_functions_match_jax(variant):
-    js, ts = jax_cornell_box(variant), cornell_box(variant)
+    js, ts = jax_cornell_box(variant), cornell_box(variant, device="cpu")
     mat, n, wo, wi, u = shading_inputs(4000, seed=3, n_mat=js.mat_kind.shape[0])
     (jm, jn, jwo, jwi, ju), (tm, tn, two, twi, tu) = both(mat, n, wo, wi, u)
 
@@ -144,7 +146,7 @@ def test_fresnel_matches_jax():
 
 @pytest.mark.parametrize("variant", ["boxes", "caustic"])
 def test_lights_match_jax(variant):
-    js, ts = jax_cornell_box(variant), cornell_box(variant)
+    js, ts = jax_cornell_box(variant), cornell_box(variant, device="cpu")
     u = np.random.default_rng(4).uniform(size=(3, 3000)).astype(np.float32)
     (ju,), (tu,) = both(u)
     outs_j = jlights.sample_light(js, *ju)

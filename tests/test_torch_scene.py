@@ -59,16 +59,19 @@ def test_field_names_match():
 
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_cornell_matches_jax(variant):
-    assert_scene_equal(cornell_box(variant), jax_cornell_box(variant))
+    assert_scene_equal(cornell_box(variant, device="cpu"),
+                       jax_cornell_box(variant))
 
 
 def test_cornell_light_scale_and_aspect_match_jax():
-    assert_scene_equal(cornell_box("boxes", aspect=1.5, light_scale=2.0),
+    assert_scene_equal(cornell_box("boxes", aspect=1.5, light_scale=2.0,
+                                   device="cpu"),
                        jax_cornell_box("boxes", aspect=1.5, light_scale=2.0))
 
 
 def test_furnace_matches_jax():
-    assert_scene_equal(furnace(albedo=0.4), jax_furnace(albedo=0.4))
+    assert_scene_equal(furnace(albedo=0.4, device="cpu"),
+                       jax_furnace(albedo=0.4))
 
 
 @pytest.mark.parametrize("variant", ["boxes", "spheres"])
@@ -88,7 +91,7 @@ def test_cluster_scenes_not_supported_yet():
     """Cluster-BVH scenes used to raise NotImplementedError; the port now
     builds them, tensor-equal to the JAX package's (more in
     tests/test_torch_bvh.py)."""
-    ts = cornell_box("boxes", accel="cluster", leaf_size=16)
+    ts = cornell_box("boxes", accel="cluster", leaf_size=16, device="cpu")
     assert ts.n_clusters > 0
     assert_scene_equal(ts, jax_cornell_box("boxes", accel="cluster",
                                            leaf_size=16))

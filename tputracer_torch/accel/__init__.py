@@ -1,17 +1,23 @@
 """Intersection backends, picked by the scene's layout and the rays' device.
 
   * scenes with a cluster BVH (scene.n_clusters > 0): CUDA tensors go to
-    the traversal kernel (accel.traverse_cuda), CPU tensors to the plain
-    clustered walk (accel.clustered), as the JAX package takes it on the
-    CPU;
+    the traversal kernel (accel.traverse_cuda), or, with TPUTRACER_PAIRS
+    set (read at each call, as the JAX package reads it), to the
+    pair-expansion route (accel.pairs: the expand and pair-test kernels,
+    then the traversal kernel for the rays their K slots leave open).  CPU
+    tensors go to the plain clustered walk (accel.clustered) whatever the
+    variable says, as the JAX package takes pairs only on the TPU;
   * other scenes: CUDA tensors go to the fused intersection kernel
     (accel.intersect_cuda), CPU tensors to brute force (accel.bruteforce).
 
 ``intersect_plain``/``occluded_plain`` and ``intersect_clustered``/
-``occluded_clustered`` run the kernels' plain versions on any device; they
+``occluded_clustered`` run the kernels' plain versions on any device, and
+``intersect_pairs``/``occluded_pairs`` the pair route on any device; they
 plug into ``render_pt(..., intersect_fn=..., occluded_fn=...)`` to compare
-a render with its kernel against one without.
+a render through one route with one through another.
 """
+
+import os
 
 from tputracer_torch.accel.bruteforce import (  # noqa: F401
     Hit,
@@ -29,6 +35,10 @@ from tputracer_torch.accel.intersect_cuda import (  # noqa: F401
     occluded_fused,
     occluded_plain,
 )
+from tputracer_torch.accel.pairs import (  # noqa: F401
+    intersect_pairs,
+    occluded_pairs,
+)
 from tputracer_torch.accel.traverse_cuda import (  # noqa: F401
     intersect_traverse,
     occluded_traverse,
@@ -41,10 +51,17 @@ def _on_card(o):
     return o.device.type == "cuda"
 
 
+def _use_pairs():
+    """The pair-expansion route, opt-in via TPUTRACER_PAIRS=1."""
+    return bool(os.environ.get("TPUTRACER_PAIRS"))
+
+
 def intersect(scene, o, d, tmin, tmax) -> Hit:
     """Closest hit over the scene."""
     if scene.n_clusters:
         if _on_card(o):
+            if _use_pairs():
+                return intersect_pairs(scene, o, d, tmin, tmax)
             return intersect_traverse(scene, o, d, tmin, tmax)
         return intersect_clustered(scene, o, d, tmin, tmax)
     if _on_card(o):
@@ -56,6 +73,8 @@ def occluded(scene, o, d, tmax):
     """Any-hit shadow predicate."""
     if scene.n_clusters:
         if _on_card(o):
+            if _use_pairs():
+                return occluded_pairs(scene, o, d, tmax)
             return occluded_traverse(scene, o, d, tmax)
         return occluded_clustered(scene, o, d, tmax)
     if _on_card(o):

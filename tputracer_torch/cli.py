@@ -1,8 +1,9 @@
 """CLI entry point (path tracer only):
 
     python -m tputracer_torch.cli --scene boxes --size 256 --spp 16 \
-        --bounces 4 --device cuda --out out.png
+        --bounces 4 --out out.png
 
+It renders on the card; ``--device cpu`` asks for the CPU.
 ``--scene mesh`` is BASELINE config 3's 102,410-triangle mesh (cluster
 BVH, the traversal kernel on the card), ``--scene mesh_small`` its
 5,130-triangle variant, and ``--obj FILE`` renders an OBJ file.
@@ -19,7 +20,8 @@ import json
 import time
 
 
-def main(argv=None):
+def parser():
+    """The CLI's argument parser."""
     ap = argparse.ArgumentParser(prog="tputracer_torch")
     ap.add_argument("--scene", default="boxes",
                     choices=["empty", "boxes", "spheres", "glass_sphere",
@@ -32,9 +34,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mis", action="store_true")
     ap.add_argument("--out", default="out.png")
-    ap.add_argument("--device", default="cpu",
-                    help="torch device to render on, e.g. cuda or cpu")
-    args = ap.parse_args(argv)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to render on: cuda (the default) or cpu")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
 
     import torch
 

@@ -55,7 +55,7 @@ def _box(lo, hi):
 
 
 def cornell_box(variant="boxes", aspect=1.0, light_scale=1.0, pad_to=128,
-                accel="auto", leaf_size=128, device="cpu"):
+                accel="auto", leaf_size=128, device="cuda"):
     """Classic Cornell box in [0,1]^3 (x right, y up, z into the box).
 
     variant:
@@ -107,12 +107,13 @@ def cornell_box(variant="boxes", aspect=1.0, light_scale=1.0, pad_to=128,
         materials[MAT_LIGHT]["emission"] = tuple(
             light_scale * np.asarray(materials[MAT_LIGHT]["emission"]))
 
-    cam = make_camera(
+    cam = make_camera(   # host side: make_scene reads it back as arrays
         o=(0.50, 0.50, -1.44),
         look_at=(0.50, 0.50, 0.0),
         up=(0, 1, 0),
         vfov_deg=40.0,
         aspect=aspect,
+        device="cpu",
     )
     return make_scene(
         np.stack(tris),
@@ -127,7 +128,7 @@ def cornell_box(variant="boxes", aspect=1.0, light_scale=1.0, pad_to=128,
     )
 
 
-def furnace(albedo=0.6, radius=10.0, emission=1.0, device="cpu"):
+def furnace(albedo=0.6, radius=10.0, emission=1.0, device="cuda"):
     """Furnace test: camera inside a uniformly emissive box enclosing a
     diffuse sphere.  For albedo rho and emitter L the exact answer is
     L * sum_k rho^k."""
@@ -140,6 +141,6 @@ def furnace(albedo=0.6, radius=10.0, emission=1.0, device="cpu"):
     tmats = [1] * len(tris)
     spheres = [((0.0, 0.0, 0.0), 1.0, 0)]
     cam = make_camera(o=(0, 0, -4.0), look_at=(0, 0, 0), up=(0, 1, 0),
-                      vfov_deg=40.0, aspect=1.0)
+                      vfov_deg=40.0, aspect=1.0, device="cpu")
     return make_scene(np.stack(tris), np.asarray(tmats, np.int32), mats,
                       spheres=spheres, camera=cam, device=device)

@@ -5,7 +5,8 @@ BASELINE config 3: a subdivided icosphere displaced by a deterministic,
 position-keyed sinusoid (shared vertices stay bitwise identical, so the
 mesh has no cracks), in an open room with one area light.  The host code
 is the JAX package's NumPy code, so both packages build identical arrays;
-``device`` says where the finished scene's tensors go.
+``device`` says where the finished scene's tensors go: the card unless
+the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def displaced_blob(subdiv=6, amp=0.12, freq=4.5):
 
 
 def mesh_scene(subdiv=6, leaf_size=128, accel="auto", light_scale=1.0,
-               device="cpu"):
+               device="cuda"):
     """BASELINE config 3: a >100k-triangle mesh scene in a lit room.
 
     The main displaced blob has 20*4^subdiv triangles (subdiv=6 ->
@@ -149,7 +150,8 @@ def mesh_scene(subdiv=6, leaf_size=128, accel="auto", light_scale=1.0,
         {"kind": DIFFUSE, "albedo": (0.55, 0.62, 0.75)},
     ]
     cam = make_camera(o=(0.0, 1.4, -4.2), look_at=(0.0, 1.0, 0.0),
-                      up=(0, 1, 0), vfov_deg=45.0, aspect=1.0)
+                      up=(0, 1, 0), vfov_deg=45.0, aspect=1.0,
+                      device="cpu")   # host side: make_scene reads it back
     return make_scene(tris, mats, materials, camera=cam,
                       accel=accel, leaf_size=leaf_size, device=device)
 
@@ -248,14 +250,15 @@ def load_obj_with_materials(source, mtl_source=None):
 
 
 def obj_scene(source, materials=None, mat_id=0, camera=None,
-              mtl_source=None, device="cpu", **kw):
+              mtl_source=None, device="cuda", **kw):
     """Build a renderable Scene straight from an OBJ source (file/string).
 
     With materials=None the OBJ's own mtllib/usemtl statements drive
     material assignment (load_obj_with_materials); pass an explicit
     materials list + mat_id to override with a uniform material."""
     camera = camera or make_camera(o=(0, 0.5, -3.0), look_at=(0, 0, 0),
-                                   up=(0, 1, 0), vfov_deg=40.0, aspect=1.0)
+                                   up=(0, 1, 0), vfov_deg=40.0, aspect=1.0,
+                                   device="cpu")
     if materials is None:
         tv, mats, materials = load_obj_with_materials(
             source, mtl_source=mtl_source)

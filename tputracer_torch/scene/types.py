@@ -122,8 +122,9 @@ def _tensor(x, dtype, device):
     return torch.from_numpy(np.array(x, dtype=dtype, order="C")).to(device)
 
 
-def make_camera(o, look_at, up, vfov_deg, aspect, device="cpu"):
-    """Build a Camera from look-at parameters (host-side NumPy)."""
+def make_camera(o, look_at, up, vfov_deg, aspect, device="cuda"):
+    """Build a Camera from look-at parameters (host-side NumPy), on
+    ``device`` (the card unless the caller asks for the CPU)."""
     o = np.asarray(o, np.float32)
     w = np.asarray(look_at, np.float32) - o
     w = w / np.linalg.norm(w)
@@ -163,10 +164,11 @@ def make_scene(
     accel="auto",      # "auto" | "cluster" | "none"
     leaf_size=128,
     cluster_threshold=2048,  # "auto": cluster scenes above this tri count
-    device="cpu",
+    device="cuda",
 ):
     """Host-side scene finalization: SoA arrays + Pluecker precompute +
-    padding, moved to ``device``.  Large meshes (or ``accel="cluster"``)
+    padding, moved to ``device`` (the card unless the caller asks for the
+    CPU).  Large meshes (or ``accel="cluster"``)
     also get the 2-level cluster BVH (accel.bvh): the triangle tables are
     laid out cluster-major, with one AABB per cluster."""
     tv = np.asarray(tri_vertices, np.float32)
