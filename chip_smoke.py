@@ -19,10 +19,16 @@ Run from the root of a checkout.  Phases, each printing one line:
   5. parity: a 64x64, 4 spp render with the kernel against the same render
      with the plain version on the card, and against the CPU render.
   6. traverse: the traversal kernel against its plain version (the
-     clustered walk) on the 102,410-triangle mesh at 2^16 rays (one
-     config-3 chunk): camera rays and random rays from inside the room,
-     closest and any hit; a ragged count; a scene with spheres and 16-slot
-     leaves.  Both timed.
+     clustered walk), bit for bit (t and prim), on the 102,410-triangle
+     mesh at 2^16 rays (one config-3 chunk): camera rays and random rays
+     from inside the room, closest and any hit; rays that start on cluster
+     box faces, so entries tie at te = +-0; the pair route's fallback input
+     (its unresolved rays first, the rest at tmax = 0); deep walks through
+     a soup of large triangles at config 3's widths, where every ray admits
+     more than 4 x 32 clusters, so the lanes refill their buffers; a
+     ragged count; a scene with spheres and 16-slot leaves.  Timed beside
+     the plain version and the bound; the clusters each ray admits and
+     enters.
   7. mesh render: the config-3 path, api.render of mesh_scene(subdiv=6) at
      256x256, 4 spp, 8 bounces; it must launch the traversal kernel 68
      times (4 chunks x (9 closest + 8 shadow)), the intersection kernel
@@ -43,6 +49,10 @@ Run from the root of a checkout.  Phases, each printing one line:
      traversal kernels 68 times each, the intersection kernel never, give
      a mean in [0.20, 0.30] and match the default route's image at the
      golden tolerances.  Timed in turns with the default route.
+
+A kernel's ``ms`` times one call alone between CUDA events, the wrapper's
+host work included (cuda_ms: the median of 5 after 2 warm-ups);
+``device_ms`` is the card's time per call over 20 calls back to back.
 
 Then a JSON line of per-kernel results (each kernel's launches on its main
 path, times, and bound: the larger of the bytes it must move over 3.35
@@ -121,6 +131,26 @@ def cuda_ms(fn, warmup, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=20):
+    """Milliseconds of the card per call of fn: ``reps`` calls back to back
+    between two CUDA events, after two warm-up calls.  The host's work for
+    a call overlaps the card's work on the one before, so this is the
+    card's time wherever a call keeps the card busier than the host; a
+    single call between events (cuda_ms) also counts the wrapper's host
+    work while the card waits."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def card_line():
@@ -226,8 +256,12 @@ def compare_case(variant, any_hit, rays, args):
         nbytes = n * (6 + 2 + 2) * 4 + 4 * (sph.numel() + plu.numel()
                                             + 3 * plu.shape[1] + 2 * plu.shape[1])
         res["bound_ms"], res["bound_by"] = bound(ops, nbytes)
-    res["ms"] = cuda_ms(lambda: ic.fused_intersect_cuda(
-        o, d, tmin, tmax, *args, any_hit=any_hit), 2, 5)
+    def kernel():
+        return ic.fused_intersect_cuda(o, d, tmin, tmax, *args,
+                                       any_hit=any_hit)
+
+    res["ms"] = cuda_ms(kernel, 2, 5)
+    res["device_ms"] = device_ms(kernel)
     res["plain_ms"] = cuda_ms(lambda: ic.fused_intersect_plain(
         o, d, tmin, tmax, *args), 2, 5)
     return res, max_abs
@@ -372,47 +406,51 @@ def mesh_camera_rays(scene, seed):
 
 
 def traverse_case(rays_name, any_hit, rays, args, leaf, timed=True):
-    """Traversal kernel vs the plain walk on one ray set and mode."""
-    from tputracer_torch.accel import clustered as cl
-    from tputracer_torch.accel import traverse_cuda as tc
-
+    """Traversal kernel vs the plain walk on one ray set and mode, from
+    bt0 = tmax, bp0 = -1."""
     o, d, tmin, tmax, tocc = rays
     if any_hit:
         tmax = tocc
+    bp0 = torch.full((o.shape[0],), -1, dtype=torch.int32, device="cuda")
+    return hold_walk(rays_name, any_hit, (o, d, tmin, tmax, tmax.clone(), bp0),
+                     args, leaf, timed)
+
+
+def hold_walk(rays_name, any_hit, walk_in, args, leaf, timed=True):
+    """The traversal kernel against the plain walk on the walk's inputs
+    (o, d, tmin, tmax, bt0, bp0): t and prim bit for bit.  With ``timed``,
+    the kernel (cuda_ms and device_ms) and the plain walk timed."""
+    from tputracer_torch.accel import clustered as cl
+    from tputracer_torch.accel import traverse_cuda as tc
+
+    o, d, tmin, tmax = walk_in[:4]
     n = o.shape[0]
-    bt0 = tmax.clone()
-    bp0 = torch.full((n,), -1, dtype=torch.int32, device="cuda")
 
     def kernel():
-        return tc.traverse_cuda(o, d, tmin, tmax, bt0, bp0, *args, leaf=leaf,
-                                any_hit=any_hit)
+        return tc.traverse_cuda(*walk_in, *args, leaf=leaf, any_hit=any_hit)
 
     def plain():
-        return cl._traverse(o, d, tmin, tmax, bt0, bp0, *args, leaf=leaf,
-                            any_hit=any_hit)
+        return cl._traverse(*walk_in, *args, leaf=leaf, any_hit=any_hit)
 
-    t_k, p_k = kernel()
     t_p, p_p = plain()
-    torch.cuda.synchronize()
-    mism = int((p_k != p_p).sum())
-    both = p_k == p_p
-    max_abs = float((t_k - t_p).abs()[both].max()) if n else 0.0
     res = {"rays": rays_name, "n_rays": n,
            "mode": "any" if any_hit else "closest",
-           "prim_mismatch": mism, "max_abs_err": max_abs,
            "hit_share": float((p_p >= 0).float().mean())}
-    check(mism <= 1e-4 * n, f"traverse {rays_name}: {mism} prims differ")
-    check(max_abs == 0.0, f"traverse {rays_name}: t differs by {max_abs}")
-    if any_hit:
-        occ_mism = int(((t_k < tmax) != (t_p < tmax)).sum())
-        res["occluded_mismatch"] = occ_mism
-        check(occ_mism == 0, f"traverse {rays_name}: {occ_mism} occlusion "
-                             f"booleans differ")
-    else:
-        res["bound_ms"], res["bound_by"] = walk_bound(o, d, tmin, tmax, t_p,
-                                                      args, leaf)
+    t_k, p_k = kernel()
+    torch.cuda.synchronize()
+    mism = {"prim": int((p_k != p_p).sum()), "t": int((t_k != t_p).sum())}
+    max_abs = float((t_k - t_p).abs().max()) if n else 0.0
+    res.update(prim_mismatch=mism["prim"], t_mismatch=mism["t"],
+               max_abs_err=max_abs)
+    check(mism == {"prim": 0, "t": 0} and max_abs == 0.0,
+          f"traverse {rays_name}: the kernel differs from the plain walk "
+          f"{mism}, t err {max_abs}")
+    if not any_hit:
+        res["bound_ms"], res["bound_by"], res["clusters"] = walk_bound(
+            o, d, tmin, tmax, t_p, args, leaf)
     if timed:
         res["ms"] = cuda_ms(kernel, 2, 5)
+        res["device_ms"] = device_ms(kernel)
         res["plain_ms"] = cuda_ms(plain, 1, 3)
     return res
 
@@ -420,22 +458,99 @@ def traverse_case(rays_name, any_hit, rays, args, leaf, timed=True):
 def walk_bound(o, d, tmin, tmax, t_final, args, leaf):
     """Least work of a closest-hit walk on this data: one slab scan of all
     C boxes per live ray, and a plane test of every valid slot of each
-    cluster entered before the ray's final hit."""
+    cluster entered before the ray's final hit.  Returns (bound_ms,
+    bound_by, counts): the clusters each live ray admits (least, mean,
+    most) and enters before its final hit, which the walk visits (mean,
+    most), and the share of live rays with two or more entries at te = 0."""
     from tputracer_torch.accel import clustered as cl
 
     cmin, cmax, plu, mask = args[0], args[1], args[2], args[5]
-    C, T = cmin.shape[0], plu.shape[1]
+    C, T = cmin.shape[0], plu.shape[2]
     valid = (mask > 0).float().reshape(C, leaf).sum(1)
     live = tmax > tmin
     tests = 0.0
+    adm, seen_n, zero = [], [], []
     for r0 in range(0, o.shape[0], 1 << 13):
         rs = slice(r0, r0 + (1 << 13))
         te = cl.cluster_entries(o[rs], d[rs], tmin[rs], tmax[rs], cmin, cmax)
         seen = (te < t_final[rs, None]) & live[rs, None]
         tests += float((seen.float() @ valid).sum())
+        adm.append((te < BIG).sum(1)[live[rs]])
+        seen_n.append(seen.sum(1)[live[rs]])
+        zero.append((te == 0.0).sum(1)[live[rs]])
     ops = float(live.sum()) * C * OPS_SLAB + tests * OPS_PLANE
     nbytes = 4 * (12 * o.shape[0] + 6 * C + 23 * T)
-    return bound(ops, nbytes)
+    adm, seen_n = torch.cat(adm).float(), torch.cat(seen_n).float()
+    counts = {"admitted_min": int(adm.min()), "admitted_mean":
+              float(adm.mean()), "admitted_max": int(adm.max()),
+              "visited_mean": float(seen_n.mean()),
+              "visited_max": int(seen_n.max()), "zero_tie_share":
+              float((torch.cat(zero) >= 2).float().mean())}
+    return (*bound(ops, nbytes), counts)
+
+
+def face_rays(cmin, cmax, n, seed, device="cuda"):
+    """Rays from a point on a face of a random cluster's box into the box:
+    on a max face the slab gives t = (cmax - o) * (1/d) = 0 * (negative),
+    which is -0, on a min face +0, so entries tie at te = +-0 with every
+    box that holds the origin.  tmax = 3e38; occlusion distances up to 3."""
+    rng = np.random.default_rng(seed)
+    lo, hi = cmin.cpu().numpy(), cmax.cpu().numpy()
+    c = rng.integers(0, lo.shape[0], n)
+    o = (lo[c] + rng.uniform(0.0, 1.0, (n, 3)) * (hi[c] - lo[c])).astype(
+        np.float32)
+    rows, axis = np.arange(n), rng.integers(0, 3, n)
+    on_max = rng.integers(0, 2, n) == 1
+    o[rows, axis] = np.where(on_max, hi[c, axis], lo[c, axis])
+    d = rng.normal(size=(n, 3))
+    d[rows, axis] = np.abs(d[rows, axis]) * np.where(on_max, -1.0, 1.0)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tocc = rng.uniform(0.0, 3.0, n)
+    return tuple(torch.from_numpy(np.asarray(x, np.float32)).to(device)
+                 for x in (o, d, np.zeros(n), np.full(n, BIG), tocc))
+
+
+def soup_scene(n_tris, seed, device="cuda"):
+    """A clustered soup of large random triangles (vertices anywhere in
+    [-1, 1]^3) in 128-slot leaves, built by make_scene's BVH builder: every
+    cluster box spans most of the cube."""
+    from tputracer_torch.scene.types import DIFFUSE, make_scene
+
+    tv = np.random.default_rng(seed).uniform(-1.0, 1.0, (n_tris, 3, 3))
+    return make_scene(tv.astype(np.float32), np.zeros(n_tris, np.int32),
+                      [{"kind": DIFFUSE, "albedo": (0.5, 0.5, 0.5)}],
+                      accel="cluster", leaf_size=128, device=device)
+
+
+def soup_rays(n, seed, device="cuda"):
+    """Rays from a sphere of radius 3 aimed into [-0.5, 0.5]^3, through the
+    soup; occlusion distances up to 6."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o *= 3.0 / np.linalg.norm(o, axis=1, keepdims=True)
+    d = rng.uniform(-0.5, 0.5, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return tuple(torch.from_numpy(np.asarray(x, np.float32)).to(device)
+                 for x in (o, d, np.zeros(n), np.full(n, BIG),
+                           rng.uniform(0.0, 6.0, n)))
+
+
+def fallback_input(sc, o, d, tmin, tmax):
+    """The walk's inputs in the pair route's fallback call
+    (accel.pairs._pair_traverse), closest hit from bt0 = tmax: the rays
+    the K slots leave unresolved first, the resolved ones at tmax = 0,
+    each starting from the slots' best.  Returns (inputs, unresolved)."""
+    from tputracer_torch.accel import pairs
+
+    bt0 = tmax.clone()
+    bp0 = torch.full(tmax.shape, -1, dtype=torch.int32, device=o.device)
+    best_t, best_p, resolved = pairs._slot_best(sc, o, d, tmin, tmax, bt0,
+                                                bp0, False)
+    _, fidx = torch.sort(resolved.to(torch.int32), stable=True)
+    walk_in = (o[fidx], d[fidx], tmin[fidx],
+               torch.where(resolved, 0.0, tmax)[fidx], best_t[fidx],
+               best_p[fidx])
+    return walk_in, int((~resolved & (tmax > tmin)).sum())
 
 
 def phase_traverse(mesh):
@@ -447,16 +562,52 @@ def phase_traverse(mesh):
 
     sc = mesh.to("cuda")
     args = cl.traverse_args(sc)
+    leaf = sc.leaf_size
     results = []
     for name, rays in (("camera", mesh_camera_rays(sc, seed=5)),
                        ("random", room_rays(N_CHUNK, seed=6))):
         for any_hit in (False, True):
-            res = traverse_case(name, any_hit, rays, args, sc.leaf_size)
+            res = traverse_case(name, any_hit, rays, args, leaf)
             results.append(res)
             emit("traverse", **res)
+
+    # rays on cluster box faces: entries tie at te = +-0
+    rays = face_rays(args[0], args[1], N_CHUNK, seed=10)
+    for any_hit in (False, True):
+        res = traverse_case("faces", any_hit, rays, args, leaf)
+        results.append(res)
+        emit("traverse", **res)
+        if not any_hit:
+            tie = res["clusters"]["zero_tie_share"]
+            check(tie > 0.5, f"face rays: only {tie} tie at te = 0")
+
+    # the pair route's fallback call (as chip_profile.py builds it)
+    o, d, tmin, tmax, _ = room_rays(N_CHUNK, seed=6)
+    walk_in, unresolved = fallback_input(sc, o, d, tmin, tmax)
+    res = hold_walk("pair fallback", False, walk_in, args, leaf)
+    res["unresolved_rays"] = unresolved
+    results.append(res)
+    emit("traverse", **res)
+
+    # deep walks: every ray admits more than 4 x 32 clusters (the mesh's
+    # rays admit a few, see "clusters" above), more than the 32 lanes'
+    # 4-entry buffers hold, so lanes refill them
+    soup = soup_scene(102_410, seed=11)
+    sargs = cl.traverse_args(soup)
+    rays = soup_rays(1 << 12, seed=12)
+    for any_hit in (False, True):
+        res = traverse_case("deep", any_hit, rays, sargs, soup.leaf_size)
+        res["n_clusters"] = soup.n_clusters
+        results.append(res)
+        emit("traverse", **res)
+        if not any_hit:
+            least = res["clusters"]["admitted_min"]
+            check(least > 4 * 32,
+                  f"soup rays admit as few as {least} clusters")
+
     # a ragged count: the last block is partly out of range
     small = tuple(x[:1000] for x in room_rays(N_CHUNK, seed=7))
-    results.append(traverse_case("ragged", False, small, args, sc.leaf_size,
+    results.append(traverse_case("ragged", False, small, args, leaf,
                                  timed=False))
     # spheres (the preamble) and 16-slot leaves, through the Hit wrappers
     sph = cornell_box("spheres", accel="cluster", leaf_size=16,
@@ -467,16 +618,16 @@ def phase_traverse(mesh):
     occ_mism = int((tc.occluded_traverse(sph, o, d, tocc)
                     != occluded_clustered(sph, o, d, tocc)).sum())
     mism = int((hk.prim != hp.prim).sum())
-    both = hk.prim == hp.prim
-    max_abs = float((hk.t - hp.t).abs()[both].max())
+    t_mism = int((hk.t != hp.t).sum())
+    max_abs = float((hk.t - hp.t).abs().max())
     sph_share = float((hp.prim >= sph.n_tri_pad).float().mean())
     emit("traverse", rays="spheres leaf 16", n_rays=N_CHUNK,
-         prim_mismatch=mism, occluded_mismatch=occ_mism,
+         prim_mismatch=mism, t_mismatch=t_mism, occluded_mismatch=occ_mism,
          max_abs_err=max_abs, sphere_hit_share=sph_share,
          n_clusters=sph.n_clusters)
-    check(mism <= 1e-4 * N_CHUNK and occ_mism == 0 and max_abs == 0.0,
-          f"spheres scene: {mism} prims, {occ_mism} booleans, t err "
-          f"{max_abs}")
+    check(mism == 0 and t_mism == 0 and occ_mism == 0 and max_abs == 0.0,
+          f"spheres scene: {mism} prims, {t_mism} t, {occ_mism} booleans, "
+          f"t err {max_abs}")
     check(sph_share > 0.05, f"spheres scene: sphere hit share {sph_share}")
     return results, max(r["max_abs_err"] for r in results)
 
@@ -682,14 +833,14 @@ def pairs_case(name, sc, rays, any_hit, timed):
         4 * (n * (8 + 2 * k + 1) + 6 * C))
     res["pairtest_bound_ms"], res["pairtest_bound_by"] = bound(
         slots * OPS_MT, 4 * (n * k * 12 + 10 * mask.shape[0]))
-    res["expand_ms"] = cuda_ms(expand_k, 2, 5)
+    for key, fn in (("expand", expand_k), ("pairtest", test_k),
+                    ("route", route), ("traverse", walk)):
+        res[f"{key}_ms"] = cuda_ms(fn, 2, 5)
+        res[f"{key}_device_ms"] = device_ms(fn)
     res["expand_plain_ms"] = cuda_ms(expand_p, 1, 3)
-    res["pairtest_ms"] = cuda_ms(test_k, 2, 5)
     res["pairtest_plain_ms"] = cuda_ms(test_p, 1, 3)
-    res["route_ms"] = cuda_ms(route, 2, 5)
-    res["traverse_ms"] = cuda_ms(walk, 2, 5)
     if not any_hit:
-        res["traverse_bound_ms"], res["traverse_bound_by"] = walk_bound(
+        res["traverse_bound_ms"], res["traverse_bound_by"], _ = walk_bound(
             o, d, tmin, tmax, t_w, targs, leaf)
     return res
 
@@ -809,6 +960,8 @@ def main():
                   if r["rays"] == "random" and r["mode"] == "closest")
     p_case = next(r for r in p_results
                   if r["rays"] == "random" and r["mode"] == "closest")
+    p_case_18 = next(r for r in p_results
+                     if r["rays"] == "random 2^18" and r["mode"] == "closest")
     print(json.dumps({"kernels": [{
         "name": "fused_intersect",
         "route": "cuda",
@@ -817,6 +970,7 @@ def main():
         "launches": launches,
         "max_abs_err": max_abs,
         "ms": main_case["ms"],
+        "device_ms": main_case["device_ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
@@ -829,10 +983,12 @@ def main():
         "launches": t_launches,
         "max_abs_err": t_max_abs,
         "ms": t_case["ms"],
+        "device_ms": t_case["device_ms"],
         "plain_ms": t_case["plain_ms"],
         "bound_ms": t_case["bound_ms"],
         "bound_by": t_case["bound_by"],
         "library_ms": None,
+        "ms_2p18": p_case_18["traverse_ms"],
     }, {
         "name": "pair_expand",
         "route": "cuda",
@@ -841,6 +997,7 @@ def main():
         "launches": p_launches["expand"],
         "max_abs_err": max(r["expand_max_abs_err"] for r in p_results),
         "ms": p_case["expand_ms"],
+        "device_ms": p_case["expand_device_ms"],
         "plain_ms": p_case["expand_plain_ms"],
         "bound_ms": p_case["expand_bound_ms"],
         "bound_by": p_case["expand_bound_by"],
@@ -853,6 +1010,7 @@ def main():
         "launches": p_launches["pair_test"],
         "max_abs_err": max(r["pairtest_max_abs_err"] for r in p_results),
         "ms": p_case["pairtest_ms"],
+        "device_ms": p_case["pairtest_device_ms"],
         "plain_ms": p_case["pairtest_plain_ms"],
         "bound_ms": p_case["pairtest_bound_ms"],
         "bound_by": p_case["pairtest_bound_by"],

@@ -37,6 +37,7 @@ from tputracer_torch.accel import (intersect, intersect_brute,
 from tputracer_torch.accel import clustered as cl
 from tputracer_torch.accel import traverse_cuda as tc
 from tputracer_torch.scene import DIFFUSE, scene_from_numpy
+from chip_smoke import face_rays, soup_rays
 from test_torch_scene import jax_arrays
 
 BIG = float(np.float32(3.0e38))   # the float32 value the walk returns
@@ -47,12 +48,13 @@ def _few_threads():
     torch.set_num_threads(2)
 
 
-def random_scene(n_tris=257, n_spheres=2, seed=0, leaf_size=16):
-    """_random_scene of tests/unit/test_accel.py, built by JAX and carried
-    across: (JAX scene, port scene)."""
+def random_scene(n_tris=257, n_spheres=2, seed=0, leaf_size=16, size=0.25):
+    """_random_scene of tests/unit/test_accel.py (triangles within +-size
+    of a random point of [-1, 1]^3), built by JAX and carried across:
+    (JAX scene, port scene)."""
     r = np.random.default_rng(seed)
     base = r.uniform(-1, 1, (n_tris, 1, 3))
-    tv = (base + r.uniform(-0.25, 0.25, (n_tris, 3, 3))).astype(np.float32)
+    tv = (base + r.uniform(-size, size, (n_tris, 3, 3))).astype(np.float32)
     mats = r.integers(0, 2, n_tris).astype(np.int32)
     materials = [
         {"kind": DIFFUSE, "albedo": (0.5, 0.5, 0.5)},
@@ -192,6 +194,74 @@ def test_clustered_matches_brute_bitwise(n_spheres):
                        occluded_brute(ts, *t_args(o, d, tmax)))
 
 
+def hold_against_brute_and_jax(js, ts, o, d, tmin, tmax, any_hit):
+    """The port's clustered walk against its brute force (bit for bit) and
+    against JAX's clustered walk (prim and occlusion exact, t as in
+    test_clustered_matches_jax)."""
+    if any_hit:
+        occ = occluded_clustered(ts, *t_args(o, d, tmax))
+        assert torch.equal(occ, occluded_brute(ts, *t_args(o, d, tmax)))
+        occ_j = np.asarray(jax_occluded_clustered(js, *j_args(o, d, tmax)))
+        np.testing.assert_array_equal(occ.numpy(), occ_j)
+        return occ.numpy()
+    hc = intersect_clustered(ts, *t_args(o, d, tmin, tmax))
+    hb = intersect_brute(ts, *t_args(o, d, tmin, tmax))
+    assert torch.equal(hc.valid, hb.valid) and torch.equal(hc.prim, hb.prim)
+    assert torch.equal(hc.t[hb.valid], hb.t[hb.valid])
+    hj = jax_intersect_clustered(js, *j_args(o, d, tmin, tmax))
+    np.testing.assert_array_equal(hc.valid.numpy(), np.asarray(hj.valid))
+    np.testing.assert_array_equal(hc.prim.numpy(), np.asarray(hj.prim))
+    assert_plane_t_close(ts, o, d, hc.prim.numpy(), hc.t.numpy(),
+                         np.asarray(hj.t))
+    return hc.valid.numpy()
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_walk_through_many_clusters(any_hit):
+    """Rays that admit more than 32 clusters each (a soup of large
+    triangles whose 16-slot cluster boxes overlap), as the kernel's lanes
+    see when they refill their buffers: the walk still finds brute force's
+    hit and JAX's."""
+    js, ts = random_scene(n_tris=1024, n_spheres=0, seed=51, size=1.0)
+    o, d, tmin, tmax, tocc = (x.numpy() for x in soup_rays(512, seed=52,
+                                                            device="cpu"))
+    n = o.shape[0]
+    if any_hit:
+        tmax = tocc
+    args = cl.traverse_args(ts)
+    te = cl.cluster_entries(*t_args(o, d, tmin, np.full(n, BIG, np.float32)),
+                            args[0], args[1])
+    assert int((te < BIG).sum(1).min()) > 32
+    got = hold_against_brute_and_jax(js, ts, o, d, tmin, tmax, any_hit)
+    assert 0.2 < got.mean()
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_walk_zero_entry_ties(any_hit):
+    """Rays that start on a face of a cluster box and point into it enter
+    that box at t = 0 * (1/d): -0 on a max face, +0 on a min face.  They
+    tie at te = 0 with every box that holds the origin, and the walk
+    visits the tied clusters in id order, as brute force and JAX agree."""
+    js, ts = random_scene(n_tris=400, n_spheres=0, seed=61)
+    cmin, cmax = cl.traverse_args(ts)[:2]
+    o, d, tmin, tmax, tocc = (x.numpy() for x in face_rays(
+        cmin, cmax, 600, seed=62, device="cpu"))
+    if any_hit:
+        tmax = tocc
+    cmin, cmax = cmin.numpy(), cmax.numpy()
+    # the slab terms of the faces are signed zeros, -0 and +0 both
+    inv = 1.0 / d[:, None, :]
+    with np.errstate(over="ignore"):   # far boxes along tiny directions
+        slabs = ((cmin[None] - o[:, None]) * inv,
+                 (cmax[None] - o[:, None]) * inv)
+    zeros = np.concatenate([t[t == 0] for t in slabs])
+    assert np.signbit(zeros).any() and not np.signbit(zeros).all()
+    te = cl.cluster_entries(*t_args(o, d, tmin, tmax), *t_args(cmin, cmax))
+    assert float(((te == 0).sum(1) >= 2).float().mean()) > 0.5
+    got = hold_against_brute_and_jax(js, ts, o, d, tmin, tmax, any_hit)
+    assert 0.1 < got.mean()
+
+
 def one_triangle_clusters(boxes, leaf=5):
     """Clusters that each hold one copy of the triangle (0,0,1), (2,0,1),
     (0,2,1) in slot 2 of ``leaf`` slots, the rest padding; ``boxes`` are
@@ -199,7 +269,7 @@ def one_triangle_clusters(boxes, leaf=5):
     C = len(boxes)
     T = C * leaf
     v = np.array([[0, 0, 1], [2, 0, 1], [0, 2, 1]], np.float32)
-    plu = torch.zeros(3, T, 6)
+    plu = torch.zeros(3, 6, T)
     trin = torch.zeros(T, 3)
     v0n = torch.zeros(T)
     mask = torch.zeros(T)
@@ -208,7 +278,7 @@ def one_triangle_clusters(boxes, leaf=5):
                                                 v[None, 2]))[:, :, 0]
     for c in range(C):
         s = c * leaf + 2
-        plu[:, s] = tri_plu
+        plu[:, :, s] = tri_plu
         trin[s] = torch.tensor([0.0, 0.0, 4.0])
         v0n[s] = 4.0
         mask[s] = 1.0

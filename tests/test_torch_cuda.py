@@ -4,7 +4,8 @@ The fused intersection kernel (csrc/intersect.cu), the cluster-BVH
 traversal kernel (csrc/traverse.cu) and the pair route's expand and
 pair-test kernels (csrc/pairs.cu) must agree bit for bit with their plain
 torch versions, and renders through them with renders through the plain
-versions (or, for the pair route, with the default route).
+versions (or, for the pair route, with the default route).  The ray sets
+are chip_smoke.py's.
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -13,10 +14,14 @@ the card, run them without the JAX-pinning conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (face_rays, fallback_input, random_rays, room_rays,
+                        soup_rays, soup_scene)
 from tputracer_torch.accel import clustered as cl
 from tputracer_torch.accel import intersect_cuda as ic
 from tputracer_torch.accel import pairs
@@ -34,19 +39,6 @@ BIG = 3.0e38
 def need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-
-
-def random_rays(n, seed):
-    r = np.random.default_rng(seed)
-    o = r.uniform(0.02, 0.98, (n, 3)).astype(np.float32)
-    d = r.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmin = np.zeros(n, np.float32)
-    tmax = np.full(n, BIG, np.float32)
-    tocc = r.uniform(0.0, 1.5, n).astype(np.float32)
-    tmax[::4] = 0.0
-    tocc[::4] = 0.0
-    return tuple(torch.from_numpy(x).cuda() for x in (o, d, tmin, tmax, tocc))
 
 
 @pytest.mark.cuda
@@ -88,22 +80,6 @@ def test_cuda_render_goes_through_kernel():
                          occluded_fn=occluded_plain)
     assert torch.equal(img_k, img_p)
     assert bool(torch.isfinite(img_k).all()) and float(img_k.mean()) > 0.1
-
-
-def room_rays(n, seed):
-    """Rays from inside mesh_scene's room in random directions; a quarter
-    of the lanes dead; occlusion distances up to 3."""
-    r = np.random.default_rng(seed)
-    o = r.uniform((-1.9, 0.05, -1.9), (1.9, 2.9, 1.9), (n, 3))
-    d = r.normal(size=(n, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmin = np.zeros(n)
-    tmax = np.full(n, BIG)
-    tocc = r.uniform(0.0, 3.0, n)
-    tmax[::4] = 0.0
-    tocc[::4] = 0.0
-    return tuple(torch.from_numpy(x.astype(np.float32)).cuda()
-                 for x in (o, d, tmin, tmax, tocc))
 
 
 @pytest.mark.cuda
@@ -164,6 +140,54 @@ def test_cuda_mesh_render_goes_through_traversal_kernel():
                          occluded_fn=occluded_clustered)
     assert torch.equal(img_k, img_p)
     assert bool(torch.isfinite(img_k).all()) and float(img_k.mean()) > 0.1
+
+
+@functools.lru_cache(maxsize=None)
+def walk_case(name):
+    """(walk inputs (o, d, tmin, tmax, bt0, bp0), scene tables, leaf) of
+    one of the hard ray sets, built once per test process."""
+    if name == "deep":
+        # every ray admits more than 4 x 32 of the soup's 128-slot
+        # clusters, more than the lanes' buffers hold, so lanes refill them
+        sc = soup_scene(20_480, seed=21)
+        args = cl.traverse_args(sc)
+        o, d, tmin, tmax, _ = soup_rays(2048, seed=22)
+        te = cl.cluster_entries(o, d, tmin, tmax, args[0], args[1])
+        assert int((te < BIG).sum(1).min()) > 4 * 32
+    elif name == "faces":
+        sc = mesh_scene(subdiv=4, device="cuda")
+        args = cl.traverse_args(sc)
+        o, d, tmin, tmax, _ = face_rays(args[0], args[1], 20_000, seed=22)
+        te = cl.cluster_entries(o, d, tmin, tmax, args[0], args[1])
+        assert float(((te == 0).sum(1) >= 2).float().mean()) > 0.5
+    else:   # the pair route's fallback call: unresolved rays first
+        sc = mesh_scene(subdiv=4, device="cuda")
+        walk_in, unresolved = fallback_input(sc, *room_rays(100_003,
+                                                            seed=23)[:4])
+        assert 0 < unresolved < 10_000
+        return walk_in, cl.traverse_args(sc), sc.leaf_size
+    bp0 = torch.full(tmax.shape, -1, dtype=torch.int32, device="cuda")
+    return (o, d, tmin, tmax, tmax.clone(), bp0), args, sc.leaf_size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["deep", "faces", "fallback"])
+def test_traverse_kernel_hard_rays(case):
+    """The traversal kernel gives the plain walk's t and prim bit for bit,
+    closest and any hit, on deep walks (lanes refill their buffers), on
+    entries that tie at te = +-0, and on the pair route's fallback input."""
+    need_card()
+    walk_in, args, leaf = walk_case(case)
+    modes = (False,) if case == "fallback" else (False, True)
+    for any_hit in modes:
+        launches = tc.LAUNCHES
+        t_k, p_k = tc.traverse_cuda(*walk_in, *args, leaf=leaf,
+                                    any_hit=any_hit)
+        t_p, p_p = cl._traverse(*walk_in, *args, leaf=leaf, any_hit=any_hit)
+        torch.cuda.synchronize()
+        assert tc.LAUNCHES == launches + 1
+        assert torch.equal(p_k, p_p) and torch.equal(t_k, t_p)
+        assert float((p_p >= 0).float().mean()) > 0.01
 
 
 def mesh_pairs(sc, o, d, tmin, tmax, k):

@@ -48,10 +48,12 @@ _BIG = 3.0e38
 
 def traverse_args(scene):
     """Scene tables in the kernel's layout, detached and contiguous:
-    cmin, cmax (C,3); plu (3,T,6); trin (T,3); v0n (T,) = v0.n; mask (T,)."""
+    cmin, cmax (C,3); plu (3,6,T), the scene's own layout; trin (T,3);
+    v0n (T,) = v0.n; mask (T,).  Only v0n is computed; the scene's tables
+    are contiguous, so the rest are the scene's own tensors."""
     return (scene.clus_min.detach().contiguous(),
             scene.clus_max.detach().contiguous(),
-            scene.plu.detach().permute(0, 2, 1).contiguous(),
+            scene.plu.detach().contiguous(),
             scene.tri_n.detach().contiguous(),
             g.dot(scene.tri_v0, scene.tri_n).detach().contiguous(),
             scene.tri_mask.detach().contiguous())
@@ -93,7 +95,7 @@ def _tri_block(feat, o, d, tmin, best_t, cid, plu, trin, v0n, mask, leaf):
     (t (n,), j (n,)): the first strict minimum over the slots whose
     candidate passes tmin < t < best_t, or (_BIG, 0) if none does."""
     slots = cid[:, None].long() * leaf + torch.arange(leaf, device=cid.device)
-    blk = plu[:, slots].transpose(2, 3)            # (3, n, 6, L)
+    blk = plu[:, :, slots].transpose(1, 2)         # (3, n, 6, L)
     w0, w1, w2 = (edge_volume(feat, blk[e]) for e in range(3))
     pos = (w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0)
     neg = (w0 <= 0.0) & (w1 <= 0.0) & (w2 <= 0.0)

@@ -1,11 +1,16 @@
 """Cluster-BVH traversal: the CUDA kernel and its wrappers.
 
 Port of ``tputracer/accel/traverse_tpu.py``.  On a CUDA tensor
-:func:`traverse` launches ``csrc/traverse.cu`` (built at first use); on a
-CPU tensor it runs the kernel's plain version, accel.clustered._traverse.
-There is no other route.  ``intersect_traverse``/``occluded_traverse`` put
-the sphere preamble (``_sphere_best``, ``bt0 = min(bt0, tmax)``) in front,
-as ``intersect_pallas``/``occluded_pallas`` do.
+:func:`traverse` launches ``csrc/traverse.cu`` (built at first use), in
+which a warp walks each ray; on a CPU tensor it runs the kernel's plain
+version, accel.clustered._traverse.  There is no other route.
+``intersect_traverse``/``occluded_traverse`` put the sphere preamble
+(``_sphere_best``, ``bt0 = min(bt0, tmax)``) in front, as
+``intersect_pallas``/``occluded_pallas`` do.
+
+The kernel reads the scene's tables in their own layout
+(accel.clustered.traverse_args: Pluecker coordinates as (3, 6, T)), so a
+call copies no table.
 
 Not ported, as TPU workarounds (traverse_tpu.py): the live-first
 compaction ``_compacted_traverse`` (it only permutes rays and undoes the
@@ -27,6 +32,8 @@ from tputracer_torch.accel.intersect_cuda import _check
 LAUNCHES = 0
 
 _FN = None
+# the kernel's ray counter, one int per (device, stream), kept between calls
+_COUNTERS: dict = {}
 
 
 def load_kernel():
@@ -44,7 +51,7 @@ def load_kernel():
                        p, p, i,             # cmin, cmax, n_clusters
                        p, p, p, p,          # plu, trin, v0n, mask
                        i, i, i, i,          # leaf, n_tri, n_rays, any_hit
-                       p, p, p]             # t_out, prim_out, stream
+                       p, p, p, p]          # t_out, prim_out, next_ray, stream
         fn.restype = i
         lib.tpt_traverse_error_string.argtypes = [i]
         lib.tpt_traverse_error_string.restype = ctypes.c_char_p
@@ -64,7 +71,7 @@ def traverse_cuda(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n,
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"traverse_cuda needs CUDA tensors, got {dev}")
-    n, C, T = o.shape[0], cmin.shape[0], plu.shape[1]
+    n, C, T = o.shape[0], cmin.shape[0], plu.shape[2]
     if leaf <= 0 or T != C * leaf:
         raise ValueError(f"{T} triangle slots are not {C} clusters of {leaf}")
     f32, i32 = torch.float32, torch.int32
@@ -76,7 +83,7 @@ def traverse_cuda(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n,
     _check(bp0, "bp0", (n,), i32, dev)
     _check(cmin, "cmin", (C, 3), f32, dev)
     _check(cmax, "cmax", (C, 3), f32, dev)
-    _check(plu, "plu", (3, T, 6), f32, dev)
+    _check(plu, "plu", (3, 6, T), f32, dev)
     _check(trin, "trin", (T, 3), f32, dev)
     _check(v0n, "v0n", (T,), f32, dev)
     _check(mask, "mask", (T,), f32, dev)
@@ -91,11 +98,16 @@ def traverse_cuda(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n,
             f"block's shared memory, which holds at most {max_clusters}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        key = (dev.index, stream)
+        next_ray = _COUNTERS.get(key)
+        if next_ray is None:   # zeroed by tpt_traverse on this stream
+            next_ray = _COUNTERS[key] = torch.empty((1,), dtype=i32,
+                                                    device=dev)
         err = fn(o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
                  bt0.data_ptr(), bp0.data_ptr(), cmin.data_ptr(),
                  cmax.data_ptr(), C, plu.data_ptr(), trin.data_ptr(),
                  v0n.data_ptr(), mask.data_ptr(), leaf, T, n, int(any_hit),
-                 t.data_ptr(), prim.data_ptr(), stream)
+                 t.data_ptr(), prim.data_ptr(), next_ray.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"tpt_traverse launch failed: "
                            f"{errstr(err).decode()} ({err})")
@@ -105,7 +117,8 @@ def traverse_cuda(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n,
 
 def traverse(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n, mask,
              leaf, any_hit=False):
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor.
+    Tables as accel.clustered.traverse_args gives them."""
     args = (o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n, mask)
     if o.device.type == "cuda":
         return traverse_cuda(*args, leaf=leaf, any_hit=any_hit)
