@@ -9,9 +9,16 @@ Run from the root of a checkout.  Phases, each printing one line:
   2. build: compiles the three sources of tputracer_torch/csrc/ (one nvcc
      per source, started together) and builds the config-3 mesh scene on
      the card, saying which BVH builder (native or NumPy) ran.
-  3. kernel: the intersection kernel against its plain PyTorch version on
+  3. kernel: the intersection kernel against its plain PyTorch version,
+     bit for bit (t and prim, or the occlusion booleans with any hit), on
      2^20 random rays (Cornell boxes and spheres, closest and any hit, a
-     quarter of the lanes dead), and both timed.
+     quarter of the lanes dead) and a ragged count; the closest-hit and
+     shadow rays of bounce 2 of config 1's first chunk (2^20 paths),
+     recorded through render's hooks; a mask with holes, every hit tied
+     with a copy at a higher slot across masked slots; an unclustered soup
+     of 2,048 triangles (several staged tiles); 300 spheres (several sphere
+     tiles); rays that are all dead.  Each set's live share, the kernel
+     and plain times and the bound.
   4. render: the config-1 path, tputracer_torch.api.render of Cornell boxes
      at 512x512, 16 spp, 4 bounces; it must launch the intersection kernel
      36 times (4 chunks x (5 closest + 4 shadow)) and give a sane image.
@@ -89,10 +96,13 @@ PEAK_OPS = 33.5e12
 PEAK_BYTES = 3.35e12
 # float ops of one test, counted from the CUDA sources: a cluster slab
 # (6 sub, 6 mul, 12 min/max, 4 compares); a Pluecker + plane triangle test
-# (three 6-term dots, 6 sign compares, two 3-term dots, 6 more); a
+# (three 6-term dots, 6 sign compares, two 3-term dots, 6 more), of which
+# the edge part (the dots and compares, OPS_EDGES) is needed for every
+# pair and the plane part only where the three edge signs agree; a
 # Moeller-Trumbore test (csrc/pairs.cu); a sphere (csrc/intersect.cu)
 OPS_SLAB = 26
 OPS_PLANE = 56
+OPS_EDGES = 39
 OPS_MT = 55
 OPS_SPHERE = 24
 
@@ -216,75 +226,233 @@ def random_rays(n, seed):
                  for x in (o, d, tmin, tmax, tocc))
 
 
-def compare_case(variant, any_hit, rays, args):
-    """Kernel vs plain on one scene and mode; returns a result dict."""
+def box_soup(n_tris, n_spheres, seed):
+    """make_scene's inputs (tri_vertices, tri_mat, materials, spheres) for a
+    soup of n_tris triangles about 0.2 across and n_spheres spheres of
+    radius 0.01 to 0.05, all in the unit box that random_rays start in.
+    Up to 2,048 triangles make_scene leaves it unclustered."""
+    rng = np.random.default_rng(seed)
+    tv = (rng.uniform(0.0, 1.0, (n_tris, 1, 3))
+          + rng.normal(0.0, 0.1, (n_tris, 3, 3))).astype(np.float32)
+    spheres = [(tuple(rng.uniform(0.0, 1.0, 3)), float(rng.uniform(0.01, 0.05)),
+                0) for _ in range(n_spheres)]
+    materials = [{"kind": 0, "albedo": (0.5, 0.5, 0.5)}]   # diffuse
+    return tv, np.zeros(n_tris, np.int32), materials, spheres
+
+
+def holey_tables(seed, device="cuda"):
+    """The kernel's tables (intersect_cuda.scene_args order) of a scene
+    whose mask has holes: Cornell "boxes"' 36 triangles at random slots of
+    the first 192 of 384, in their order, and an exact copy of each at a
+    random slot of the last 192, so every hit ties with a copy at a higher
+    index across masked slots.  The masked slots (mask 0 or -1) hold large
+    random triangles that many rays would hit if the mask were ignored.
+    No spheres."""
+    from tputracer_torch.scene import cornell_box
+    from tputracer_torch.scene.types import _pluecker_matrix
+
+    rng = np.random.default_rng(seed)
+    box = cornell_box("boxes", device="cpu")
+    valid = np.flatnonzero(box.tri_mask.numpy() > 0)
+    T, half = 384, 192
+    junk = rng.uniform(-0.5, 1.5, (T, 3, 3)).astype(np.float32)
+    plu = _pluecker_matrix(junk[:, 0], junk[:, 1], junk[:, 2])
+    v0 = junk[:, 0].copy()
+    n = np.cross(junk[:, 1] - junk[:, 0], junk[:, 2] - junk[:, 0])
+    mask = np.where(rng.uniform(size=T) < 0.5, 0.0, -1.0).astype(np.float32)
+    for slots, order in (
+            (np.sort(rng.choice(half, valid.size, replace=False)), valid),
+            (half + np.sort(rng.choice(half, valid.size, replace=False)),
+             rng.permutation(valid))):
+        plu[:, :, slots] = box.plu.numpy()[:, :, order]
+        n[slots] = box.tri_n.numpy()[order]
+        v0[slots] = box.tri_v0.numpy()[order]
+        mask[slots] = 1.0
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        device) for x in (np.zeros((0, 3)), np.zeros(0), plu, n, v0, mask))
+
+
+def dead_rays(n, seed, device="cuda"):
+    """(o, d, tmin, tmax, tocc) that no candidate can satisfy: tmax = tmin
+    = 0 for half the rays, tmax < tmin for the rest, tocc = 0."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(0.02, 0.98, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.where(np.arange(n) % 2 == 1, 1.0, 0.0)
+    tmax = np.where(np.arange(n) % 2 == 1, 0.5, 0.0)
+    return tuple(torch.from_numpy(np.asarray(x, np.float32)).to(device)
+                 for x in (o, d, tmin, tmax, np.zeros(n)))
+
+
+def bounce_rays(scene, cfg, bounce):
+    """The rays of bounce ``bounce`` of the first chunk of a render of
+    ``scene`` at ``cfg``, recorded through trace_radiance's intersect_fn
+    and occluded_fn hooks, which pass them on to accel.intersect and
+    accel.occluded (the kernel on the card).  Returns the closest-hit rays
+    (o, d, tmin, tmax) and the shadow rays (o, d, 0, tmax)."""
+    from tputracer_torch.accel import intersect, occluded
+    from tputracer_torch.integrators.pt import trace_radiance
+
+    closest, shadow = [], []
+
+    def keep(*xs):
+        return tuple(x.clone(memory_format=torch.contiguous_format)
+                     for x in xs)
+
+    def isect(sc, o, d, tmin, tmax):
+        closest.append(keep(o, d, tmin, tmax))
+        return intersect(sc, o, d, tmin, tmax)
+
+    def occl(sc, o, d, tmax):
+        shadow.append(keep(o, d, torch.zeros_like(tmax), tmax))
+        return occluded(sc, o, d, tmax)
+
+    n = min(cfg.chunk_size, cfg.width * cfg.height * cfg.spp)
+    uid = torch.arange(n, dtype=torch.int64, device=scene.device)
+    trace_radiance(scene, uid, cfg, intersect_fn=isect, occluded_fn=occl)
+    return closest[bounce], shadow[bounce]
+
+
+def intersect_bound(o, d, live, args):
+    """(bound_ms, bound_by, agree_share) of a closest-hit call on this
+    data: every live ray tests every sphere and runs the edge part of
+    every valid triangle's test, and the plane part only where the three
+    edge signs agree, as the plain version's pos | neg mask says on the
+    same inputs; each ray's 40 bytes and each table read once.
+    agree_share: the share of (live ray, valid triangle) pairs whose signs
+    agree."""
+    from tputracer_torch.accel.bruteforce import edge_volume, ray_features
+
+    sph_c, plu, mask = args[0], args[2], args[5]
+    valid = mask > 0
+    feat = ray_features(o[live], d[live])
+    agree = 0
+    for b0 in range(0, plu.shape[2], 128):   # the plain version's blocks
+        sl = slice(b0, b0 + 128)
+        w0, w1, w2 = (edge_volume(feat, plu[e, :, sl].T) for e in range(3))
+        pos = (w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0)
+        neg = (w0 <= 0.0) & (w1 <= 0.0) & (w2 <= 0.0)
+        agree += int(((pos | neg) & valid[sl]).sum())
+    n_live = float(live.sum())
+    pairs = n_live * float(valid.sum())
+    ops = (pairs * OPS_EDGES + agree * (OPS_PLANE - OPS_EDGES)
+           + n_live * sph_c.shape[0] * OPS_SPHERE)
+    return (*bound(ops, 40 * live.numel() + 4 * sum(x.numel() for x in args)),
+            agree / pairs if pairs else 0.0)
+
+
+def intersect_case(name, rays, args, any_hit=False, timed=True):
+    """The intersection kernel against its plain version on one ray set
+    (o, d, tmin, tmax), scene and mode, bit for bit: t and prim, and with
+    any_hit the occlusion booleans.  With ``timed``, the kernel (cuda_ms
+    and device_ms) and the plain version timed, and closest hit's bound."""
     from tputracer_torch.accel import intersect_cuda as ic
 
-    o, d, tmin, tmax, tocc = rays
-    if any_hit:
-        tmin, tmax = torch.zeros_like(tocc), tocc
-    t_k, p_k = ic.fused_intersect_cuda(o, d, tmin, tmax, *args,
-                                       any_hit=any_hit)
-    t_p, p_p = ic.fused_intersect_plain(o, d, tmin, tmax, *args)
-    torch.cuda.synchronize()
+    o, d, tmin, tmax = rays
     n = o.shape[0]
-    res = {"scene": variant, "mode": "any" if any_hit else "closest"}
-    if any_hit:
-        occ_k, occ_p = t_k < tmax, t_p < tmax
-        mism = int((occ_k != occ_p).sum())
-        res.update(occluded_mismatch=mism, occluded_share=float(
-            occ_p.float().mean()))
-        check(mism <= 1e-4 * n, f"{variant} any-hit: {mism} booleans differ")
-        max_abs = 0.0
-    else:
-        agree = p_k == p_p
-        mism = int((~agree).sum())
-        both = agree & (p_k >= 0)
-        err = (t_k - t_p).abs()[both]
-        rel = (err / t_p.abs()[both].clamp(min=1e-30))
-        max_abs = float(err.max()) if err.numel() else 0.0
-        bad_t = int((rel > 1e-5).sum())
-        res.update(prim_mismatch=mism, t_mismatch=bad_t, max_abs_err=max_abs,
-                   hit_share=float((p_p >= 0).float().mean()))
-        check(mism <= 1e-4 * n, f"{variant} closest: {mism} prims differ")
-        check(bad_t == 0, f"{variant} closest: {bad_t} t beyond rtol 1e-5")
-        # every live ray tests every valid triangle and sphere
-        sph, plu = args[0], args[1]
-        live = float((tmax > tmin).sum())
-        ops = live * (float((args[4] > 0).sum()) * OPS_PLANE
-                      + sph.shape[0] * OPS_SPHERE)
-        nbytes = n * (6 + 2 + 2) * 4 + 4 * (sph.numel() + plu.numel()
-                                            + 3 * plu.shape[1] + 2 * plu.shape[1])
-        res["bound_ms"], res["bound_by"] = bound(ops, nbytes)
+
     def kernel():
         return ic.fused_intersect_cuda(o, d, tmin, tmax, *args,
                                        any_hit=any_hit)
 
-    res["ms"] = cuda_ms(kernel, 2, 5)
-    res["device_ms"] = device_ms(kernel)
-    res["plain_ms"] = cuda_ms(lambda: ic.fused_intersect_plain(
-        o, d, tmin, tmax, *args), 2, 5)
-    return res, max_abs
+    def plain():
+        return ic.fused_intersect_plain(o, d, tmin, tmax, *args)
+
+    (t_k, p_k), (t_p, p_p) = kernel(), plain()
+    torch.cuda.synchronize()
+    live = tmax > tmin
+    res = {"set": name, "n_rays": n, "mode": "any" if any_hit else "closest",
+           "live_share": float(live.float().mean()) if n else 0.0}
+    if any_hit:
+        mism = {"occluded": int(((t_k < tmax) != (t_p < tmax)).sum())}
+        res["occluded_share"] = float((t_p < tmax).float().mean())
+        max_abs = 0.0
+    else:
+        mism = {"prim": int((p_k != p_p).sum()),
+                "t": int((t_k.view(torch.int32)
+                          != t_p.view(torch.int32)).sum())}
+        max_abs = float((t_k - t_p).abs().max()) if n else 0.0
+        miss = p_k < 0   # a miss reports t = tmax
+        mism["miss_t"] = int((t_k[miss].view(torch.int32)
+                              != tmax[miss].view(torch.int32)).sum())
+        res["hit_share"] = float((p_p >= 0).float().mean())
+        res["bound_ms"], res["bound_by"], res["agree_share"] = \
+            intersect_bound(o, d, live, args)
+    res.update(mismatch=mism, max_abs_err=max_abs)
+    check(sum(mism.values()) == 0,
+          f"intersect {name} {res['mode']}: the kernel differs from the "
+          f"plain version {mism}")
+    if timed:
+        res["ms"] = cuda_ms(kernel, 2, 5)
+        res["device_ms"] = device_ms(kernel)
+        res["plain_ms"] = cuda_ms(plain, 1, 3)
+    return res
+
+
+def intersect_sets():
+    """The ray sets and scenes of phase 3 (and of chip_profile.py's B1
+    timing): a list of (name, rays (o, d, tmin, tmax), kernel tables,
+    any_hit, timed), the first the main case (boxes, closest hit)."""
+    from tputracer_torch.accel import intersect_cuda as ic
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.scene import cornell_box, make_scene
+
+    o, d, tmin, tmax, tocc = random_rays(N_RAYS, seed=1234)
+    zero = torch.zeros_like(tocc)
+    sets = []
+    for variant in ("boxes", "spheres"):
+        args = ic.scene_args(cornell_box(variant, device="cuda"))
+        sets += [(f"{variant}, random", (o, d, tmin, tmax), args, False, True),
+                 (f"{variant}, random", (o, d, zero, tocc), args, True, True),
+                 (f"{variant}, ragged 1000",
+                  (o[:1000], d[:1000], tmin[:1000], tmax[:1000]), args,
+                  False, False)]
+    # a real render's dead-lane pattern: config 1's first chunk, bounce 2
+    boxes = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(width=512, height=512, spp=16, max_bounces=4)
+    closest, shadow = bounce_rays(boxes, cfg, 2)
+    args = ic.scene_args(boxes)
+    sets += [("boxes, bounce 2", closest, args, False, True),
+             ("boxes, bounce 2 shadow", shadow, args, True, True)]
+    holey = holey_tables(seed=31)
+    sets += [("holes and ties", (o, d, tmin, tmax), holey, False, True),
+             ("holes and ties", (o, d, zero, tocc), holey, True, True)]
+    q = 1 << 18
+    soup = ic.scene_args(make_scene(*box_soup(2048, 0, seed=32),
+                                    device="cuda"))
+    sets += [("soup 2048", (o[:q], d[:q], tmin[:q], tmax[:q]), soup, False,
+              True),
+             ("soup 2048", (o[:q], d[:q], zero[:q], tocc[:q]), soup, True,
+              True)]
+    q = 1 << 16
+    balls = ic.scene_args(make_scene(*box_soup(300, 300, seed=33),
+                                     device="cuda"))
+    sets += [("300 spheres", (o[:q], d[:q], tmin[:q], tmax[:q]), balls,
+              False, True),
+             ("300 spheres", (o[:q], d[:q], zero[:q], tocc[:q]), balls,
+              True, False)]
+    dead = dead_rays(N_RAYS, seed=34)
+    args = ic.scene_args(boxes)
+    sets += [("all dead", dead[:4], args, False, True),
+             ("all dead", (*dead[:2], zero, dead[4]), args, True, False)]
+    return sets
 
 
 def phase_kernel():
-    from tputracer_torch.accel import intersect_cuda as ic
-    from tputracer_torch.scene import cornell_box
-
-    rays = random_rays(N_RAYS, seed=1234)
-    results, max_abs = [], 0.0
-    for variant in ("boxes", "spheres"):
-        args = ic.scene_args(cornell_box(variant, device="cuda"))
-        for any_hit in (False, True):
-            res, err = compare_case(variant, any_hit, rays, args)
-            max_abs = max(max_abs, err)
-            results.append(res)
-            emit("kernel", n_rays=N_RAYS, **res)
-        # a ragged count: the last block is partly out of range
-        small = tuple(x[:1000] for x in rays)
-        res, err = compare_case(variant, False, small, args)
-        max_abs = max(max_abs, err)
-    return results, max_abs
+    """The intersection kernel against its plain version, bit for bit, on
+    every set of intersect_sets; each set's live share, times and bound."""
+    results = []
+    for name, rays, args, any_hit, timed in intersect_sets():
+        res = intersect_case(name, rays, args, any_hit, timed)
+        if name == "all dead":
+            check(res["live_share"] == 0.0 and res.get("hit_share", 0.0)
+                  == 0.0, f"all-dead rays: {res}")
+        results.append(res)
+        emit("kernel", **res)
+    check(results[0]["set"] == "boxes, random" and
+          results[0]["mode"] == "closest", "the main case comes first")
+    return results, max(r["max_abs_err"] for r in results)
 
 
 def phase_render():

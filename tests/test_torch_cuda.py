@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (face_rays, fallback_input, random_rays, room_rays,
+from chip_smoke import (bounce_rays, box_soup, dead_rays, face_rays,
+                        fallback_input, holey_tables, random_rays, room_rays,
                         soup_rays, soup_scene)
 from tputracer_torch.accel import clustered as cl
 from tputracer_torch.accel import intersect_cuda as ic
@@ -31,7 +32,7 @@ from tputracer_torch.accel import (intersect_clustered, intersect_plain,
                                    occluded_clustered, occluded_plain)
 from tputracer_torch.config import RenderConfig
 from tputracer_torch.integrators.pt import render_pt
-from tputracer_torch.scene import cornell_box, mesh_scene
+from tputracer_torch.scene import cornell_box, make_scene, mesh_scene
 
 BIG = 3.0e38
 
@@ -62,6 +63,62 @@ def test_cuda_kernel_matches_plain(variant):
     t_a, _ = ic.fused_intersect_cuda(o, d, zeros, tocc, *args, any_hit=True)
     t_q, _ = ic.fused_intersect_plain(o, d, zeros, tocc, *args)
     assert torch.equal(t_a < tocc, t_q < tocc)
+
+
+@functools.lru_cache(maxsize=None)
+def hard_case(name):
+    """(closest-hit rays (o, d, tmin, tmax), any-hit rays, kernel tables)
+    of one of the intersection kernel's hard cases, built once per test
+    process."""
+    if name == "bounce 2":
+        sc = cornell_box("boxes", device="cuda")
+        cfg = RenderConfig(width=64, height=64, spp=8, max_bounces=4)
+        closest, shadow = bounce_rays(sc, cfg, 2)
+        return closest, shadow, ic.scene_args(sc)
+    if name == "holes":
+        args = holey_tables(seed=31)
+    elif name == "all dead":
+        args = ic.scene_args(cornell_box("boxes", device="cuda"))
+    else:
+        n_tris, n_spheres = {"soup 300": (300, 0), "soup 2048": (2048, 0),
+                             "spheres 300": (300, 300)}[name]
+        args = ic.scene_args(make_scene(*box_soup(n_tris, n_spheres,
+                                                  seed=35), device="cuda"))
+    maker = dead_rays if name == "all dead" else random_rays
+    o, d, tmin, tmax, tocc = maker(100_003, seed=36)
+    return (o, d, tmin, tmax), (o, d, torch.zeros_like(tocc), tocc), args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["holes", "soup 300", "soup 2048",
+                                  "spheres 300", "bounce 2", "all dead"])
+def test_cuda_kernel_hard_cases(case):
+    """The kernel gives the plain version's t and prim bit for bit, and the
+    same occlusion booleans with any hit: a mask with holes where every
+    hit ties with a copy at a higher slot; more than 128 valid triangles
+    (a ragged 300, and 2,048 in several staged tiles); 300 spheres in
+    several tiles; the closest-hit and shadow rays of bounce 2 of a
+    render; rays that are all dead."""
+    need_card()
+    closest, shadow, args = hard_case(case)
+    launches = ic.LAUNCHES
+    t_k, p_k = ic.fused_intersect_cuda(*closest, *args)
+    t_p, p_p = ic.fused_intersect_plain(*closest, *args)
+    t_a, _ = ic.fused_intersect_cuda(*shadow, *args, any_hit=True)
+    t_q, _ = ic.fused_intersect_plain(*shadow, *args)
+    torch.cuda.synchronize()
+    assert ic.LAUNCHES == launches + 2
+    assert torch.equal(p_k, p_p)
+    assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    assert torch.equal(t_a < shadow[3], t_q < shadow[3])
+    hit_share = float((p_p >= 0).float().mean())
+    if case == "all dead":
+        assert hit_share == 0.0 and torch.equal(t_k, closest[3])
+    else:
+        assert hit_share > 0.1
+        assert 0.0 < float((t_q < shadow[3]).float().mean()) < 1.0
+    if case == "holes":
+        assert int(p_k.max()) < 192   # never the higher copy
 
 
 @pytest.mark.cuda

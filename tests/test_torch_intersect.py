@@ -8,6 +8,14 @@
 * The CUDA kernel against the plain version is tests/test_torch_cuda.py,
   which imports no JAX so that it runs on a card's machine.
 
+Triangle t against JAX on the soups of random triangles: JAX takes v0.n
+as a jnp.sum and XLA on the CPU rounds o.n its own way; t = (v0.n - o.n)
+/ d.n then cancels for origins near the plane, so those hits are held to
+rtol 1e-6 plus 4x the plane equation's float32 rounding bound, eps * (sum
+|o_a n_a| + sum |v0_a n_a| + |t| sum |d_a n_a|) / |d.n|, as
+tests/test_torch_clustered.py holds the clustered walk.  Against the
+port's brute force the plain version is bit-equal.
+
 Sphere t tolerance: t = -b -/+ sqrt(b^2 - c) subtracts numbers of the size
 of b, and the error of b^2 - c reaches t divided by 2 sqrt(disc).  XLA on
 the CPU rounds the interpreted kernel's quadratic differently from its own
@@ -16,21 +24,28 @@ are held to 4x that float32 rounding bound, eps * ((|b| + sqrt(disc)) +
 (b^2 + |oc|^2 + r^2) / sqrt(disc)), besides rtol 1e-6.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+from chip_smoke import box_soup, holey_tables
 from tputracer.accel import intersect_brute as jax_intersect_brute
 from tputracer.accel import occluded_brute as jax_occluded_brute
+from tputracer.accel.intersect_tpu import _fused_pallas
 from tputracer.accel.intersect_tpu import intersect_fused as jax_intersect_fused
 from tputracer.accel.intersect_tpu import occluded_fused as jax_occluded_fused
 from tputracer.scene import cornell_box as jax_cornell_box
+from tputracer.scene.types import make_scene as jax_make_scene
+from tputracer_torch import geometry as g
 from tputracer_torch.accel import (intersect, intersect_brute,
                                    intersect_fused, occluded, occluded_brute,
                                    occluded_fused)
+from tputracer_torch.accel import bruteforce as bf
 from tputracer_torch.accel import intersect_cuda as ic
-from tputracer_torch.scene import cornell_box
+from tputracer_torch.scene import cornell_box, make_scene
 from tputracer_torch.scene.types import _pluecker_matrix
 
 BIG = 3.0e38
@@ -90,6 +105,25 @@ def assert_t_close(scene, o, d, prim, t_got, t_want):
     assert not bad.any(), (
         f"{bad.sum()} t beyond tolerance, e.g. {t_got[bad][:3]} vs "
         f"{t_want[bad][:3]} at prim {prim[bad][:3]}")
+
+
+def assert_plane_t_close(scene, o, d, prim, t_got, t_want):
+    """Triangle hits within rtol 1e-6 plus 4x the plane equation's float32
+    rounding bound (module docstring); sphere hits as assert_t_close."""
+    tri = (prim >= 0) & (prim < scene.n_tri_pad)
+    s = prim[tri]
+    n = scene.tri_n.numpy()[s].astype(np.float64)
+    v0 = scene.tri_v0.numpy()[s].astype(np.float64)
+    oh, dh = o[tri].astype(np.float64), d[tri].astype(np.float64)
+    t = np.abs(t_want[tri]).astype(np.float64)
+    bound = 2.0**-24 * (np.abs(oh * n).sum(1) + np.abs(v0 * n).sum(1)
+                        + t * np.abs(dh * n).sum(1)) / np.abs((dh * n).sum(1))
+    bad = np.abs(t_got[tri] - t_want[tri]) > 1e-6 * t + 4.0 * bound
+    assert not bad.any(), (
+        f"{bad.sum()} t beyond tolerance, e.g. {t_got[tri][bad][:3]} vs "
+        f"{t_want[tri][bad][:3]}")
+    sph = prim >= scene.n_tri_pad
+    assert_t_close(scene, o, d, np.where(sph, prim, -1), t_got, t_want)
 
 
 @pytest.mark.parametrize("variant", ["boxes", "spheres", "glass_sphere"])
@@ -160,29 +194,160 @@ def test_fused_plain_ties_and_ragged_blocks():
     tmax = torch.tensor([BIG, 0.0])
     # 130 triangles: 0 and 129 are the same triangle in the plane z = 1
     T = 130
-    plu = torch.zeros(3, T, 6)
+    plu = torch.zeros(3, 6, T)
     trin = torch.zeros(T, 3)
-    v0n = torch.zeros(T)
+    tri_v0 = torch.zeros(T, 3)
     mask = torch.zeros(T)
     v = np.array([[0, 0, 1], [2, 0, 1], [0, 2, 1]], np.float32)
     tri_plu = torch.from_numpy(_pluecker_matrix(v[None, 0], v[None, 1],
                                                 v[None, 2]))[:, :, 0]
     for j in (0, 129):
-        plu[:, j] = tri_plu
+        plu[:, :, j] = tri_plu
         trin[j] = torch.tensor([0.0, 0.0, 4.0])
-        v0n[j] = 4.0
+        tri_v0[j] = torch.from_numpy(v[0])     # v0.n = 4
         mask[j] = 1.0
-    sph = torch.zeros(0, 4)
-    t, prim = ic.fused_intersect_plain(o, d, tmin, tmax, sph, plu, trin, v0n,
-                                       mask)
+    no_sph = (torch.zeros(0, 3), torch.zeros(0))
+    t, prim = ic.fused_intersect_plain(o, d, tmin, tmax, *no_sph, plu, trin,
+                                       tri_v0, mask)
     assert prim.tolist() == [0, -1]
     assert t.tolist() == [2.0, 0.0]
     # a sphere touching z = 1 from the front at the same t wins the tie
-    sph = torch.tensor([[0.5, 0.5, 1.5, 0.5]])
-    t, prim = ic.fused_intersect_plain(o, d, tmin, tmax, sph, plu, trin, v0n,
-                                       mask)
+    sph = (torch.tensor([[0.5, 0.5, 1.5]]), torch.tensor([0.5]))
+    t, prim = ic.fused_intersect_plain(o, d, tmin, tmax, *sph, plu, trin,
+                                       tri_v0, mask)
     assert prim.tolist() == [T, -1]
     assert t.tolist() == [2.0, 0.0]
+
+
+def brute_tables(o, d, tmin, tmax, sph_c, sph_r, plu, trin, tri_v0, mask):
+    """(t, prim) of the port's brute force (accel.bruteforce) on bare
+    tables in the kernel's argument order: the first minimum over the
+    (N, T + S) candidate matrix, t = tmax and prim = -1 on a miss."""
+    tables = SimpleNamespace(plu=plu, tri_n=trin, tri_v0=tri_v0,
+                             tri_mask=mask, sph_c=sph_c, sph_r=sph_r)
+    tt, tv = bf._tri_candidates(tables, o, d, tmin, tmax)
+    ts, sv = bf._sph_candidates(tables, o, d, tmin, tmax)
+    t_all = torch.cat([torch.where(tv, tt, BIG), torch.where(sv, ts, BIG)], 1)
+    prim = torch.argmin(t_all, dim=1)
+    t = torch.gather(t_all, 1, prim[:, None])[:, 0]
+    hit = t < tmax
+    return torch.where(hit, t, tmax), torch.where(hit, prim, -1).to(torch.int32)
+
+
+def pallas_tables(o, d, tmin, tmax, sph_c, sph_r, plu, trin, tri_v0, mask):
+    """(t, prim) of the Pallas kernel (interpret=True) on the same tables,
+    laid out as intersect_tpu._scene_args lays them out, with v0.n in
+    geometry.dot's order."""
+    sph_c, sph_r, plu, trin, tri_v0, mask = (
+        x.numpy() for x in (sph_c, sph_r, plu, trin, tri_v0, mask))
+    S = sph_c.shape[0]
+    sph = (np.concatenate([sph_c.T, sph_r[None, :]]) if S
+           else np.zeros((4, 1), np.float32))
+    v0n = (tri_v0[:, 0] * trin[:, 0] + tri_v0[:, 1] * trin[:, 1]
+           + tri_v0[:, 2] * trin[:, 2])
+    t, prim = _fused_pallas(*jax_args(o, d, tmin, tmax, sph,
+                                      plu.transpose(0, 2, 1), trin,
+                                      v0n[:, None], mask[:, None]),
+                            n_sph=S, interpret=True)
+    return np.asarray(t), np.asarray(prim)
+
+
+def test_fused_plain_mask_holes_and_ties():
+    """A mask with holes: the rows with mask 0 or -1 hold triangles that
+    many rays would hit, and every valid triangle has an exact copy at a
+    higher slot across masked slots.  The plain version skips the masked
+    rows and gives every hit to the lower copy, as brute force (bit for
+    bit) and the interpreted Pallas kernel (exact prim) do."""
+    tables = holey_tables(seed=31, device="cpu")
+    o, d, tmin, tmax, tocc = random_rays(2000, seed=41)
+    rays = torch_args(o, d, tmin, tmax)
+    t, prim = ic.fused_intersect_plain(*rays, *tables)
+    t_b, prim_b = brute_tables(*rays, *tables)
+    assert torch.equal(prim, prim_b) and torch.equal(t, t_b)
+    t_j, prim_j = pallas_tables(o, d, tmin, tmax, *tables)
+    np.testing.assert_array_equal(prim.numpy(), prim_j)
+    hit = prim.numpy() >= 0
+    np.testing.assert_allclose(t.numpy()[hit], t_j[hit], rtol=1e-6)
+    np.testing.assert_array_equal(t.numpy()[~hit], tmax[~hit])
+    assert hit.mean() > 0.4
+    # every hit is on a valid row of the first half, never on its copy
+    mask = tables[5].numpy()
+    assert (mask[prim.numpy()[hit]] > 0).all()
+    assert (prim.numpy()[hit] < 192).all()
+    # the masked rows would be hit if the mask were ignored
+    unmasked = (*tables[:5], torch.ones_like(tables[5]))
+    _, prim_u = ic.fused_intersect_plain(*rays, *unmasked)
+    assert float((mask[prim_u.numpy()[prim_u.numpy() >= 0]] <= 0).mean()) > 0.3
+    # any hit: the same occlusion booleans as the Pallas kernel
+    zeros = np.zeros_like(tocc)
+    t_a, _ = ic.fused_intersect_plain(*torch_args(o, d, zeros, tocc), *tables)
+    t_ja, _ = pallas_tables(o, d, zeros, tocc, *tables)
+    np.testing.assert_array_equal(t_a.numpy() < tocc, t_ja < tocc)
+
+
+@pytest.mark.parametrize("n_tris", [300, 2048])
+def test_fused_plain_many_triangles(n_tris):
+    """More than 128 valid triangles: a ragged count (300 in 384 slots),
+    and 2,048, the most make_scene leaves unclustered.  The plain version
+    against the interpreted Pallas kernel (exact prim, rtol 1e-6 t, equal
+    occlusion) and the port's brute force (bit for bit)."""
+    inputs = box_soup(n_tris, 0, seed=42)
+    js, ts = jax_make_scene(*inputs), make_scene(*inputs, device="cpu")
+    assert ts.n_clusters == 0 and int((ts.tri_mask > 0).sum()) == n_tris
+    assert ts.n_tri_pad == -(-n_tris // 128) * 128
+    o, d, tmin, tmax, tocc = random_rays(1500, seed=43)
+    hj = jax_intersect_fused(js, *jax_args(o, d, tmin, tmax), interpret=True)
+    ht = intersect_fused(ts, *torch_args(o, d, tmin, tmax))   # CPU: plain
+    prim = np.asarray(hj.prim)
+    np.testing.assert_array_equal(ht.prim.numpy(), prim)
+    assert_plane_t_close(ts, o, d, prim, ht.t.numpy(), np.asarray(hj.t))
+    assert (prim >= 0).mean() > 0.4
+    hb = intersect_brute(ts, *torch_args(o, d, tmin, tmax))
+    assert torch.equal(ht.prim, hb.prim)
+    assert torch.equal(ht.t[hb.valid], hb.t[hb.valid])
+    occ_j = np.asarray(jax_occluded_fused(js, *jax_args(o, d, tocc),
+                                          interpret=True))
+    np.testing.assert_array_equal(
+        occluded_fused(ts, *torch_args(o, d, tocc)).numpy(), occ_j)
+
+
+def test_fused_plain_sphere_chunks():
+    """300 spheres (more than one of the kernel's 128-sphere tiles) beside
+    300 triangles: the plain version against JAX's brute force and the
+    port's (same prim; t within the sphere rounding bound), occlusion
+    equal."""
+    inputs = box_soup(300, 300, seed=44)
+    js, ts = jax_make_scene(*inputs), make_scene(*inputs, device="cpu")
+    o, d, tmin, tmax, tocc = random_rays(2000, seed=45)
+    ht = intersect_fused(ts, *torch_args(o, d, tmin, tmax))   # CPU: plain
+    for ref in (jax_intersect_brute(js, *jax_args(o, d, tmin, tmax)),
+                intersect_brute(ts, *torch_args(o, d, tmin, tmax))):
+        prim = np.asarray(ref.prim)
+        np.testing.assert_array_equal(ht.prim.numpy(), prim)
+        assert_plane_t_close(ts, o, d, prim, ht.t.numpy(), np.asarray(ref.t))
+    sph = ht.prim.numpy() >= ts.n_tri_pad
+    assert sph.mean() > 0.1 and (ht.prim.numpy() - ts.n_tri_pad).max() >= 128
+    np.testing.assert_array_equal(
+        occluded_fused(ts, *torch_args(o, d, tocc)).numpy(),
+        np.asarray(jax_occluded_brute(js, *jax_args(o, d, tocc))))
+
+
+def test_plane_offset_in_geometry_dot_order():
+    """The kernel computes v0.n from tri_v0 and tri_n while it stages, as
+    (v0x nx + v0y ny) + v0z nz with no fused multiply-add; the plain
+    version takes it from geometry.dot, which must round the same way.
+    The values are chosen so that other orders round differently."""
+    r = np.random.default_rng(46)
+    v0 = (r.normal(size=(4096, 3)) * 10.0 ** r.uniform(-3, 3, (4096, 3))
+          ).astype(np.float32)
+    n = (r.normal(size=(4096, 3)) * 10.0 ** r.uniform(-3, 3, (4096, 3))
+         ).astype(np.float32)
+    ordered = (v0[:, 0] * n[:, 0] + v0[:, 1] * n[:, 1]) + v0[:, 2] * n[:, 2]
+    got = g.dot(torch.from_numpy(v0), torch.from_numpy(n)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ordered.view(np.int32))
+    other = v0[:, 0] * n[:, 0] + (v0[:, 1] * n[:, 1] + v0[:, 2] * n[:, 2])
+    exact = (v0.astype(np.float64) * n).sum(1).astype(np.float32)
+    assert (other != ordered).any() and (exact != ordered).any()
 
 
 def test_dispatch_on_cpu_takes_brute_force():

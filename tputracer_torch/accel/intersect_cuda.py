@@ -15,7 +15,9 @@ tmin < t < tmax, as ``(t, prim)``:
 
 On a CUDA tensor the wrappers launch ``csrc/intersect.cu`` (built at first
 use); on a CPU tensor they run :func:`fused_intersect_plain`, a torch
-transcription of the same semantics.  There is no other route.
+transcription of the same semantics.  There is no other route.  Both read
+the scene's own tables (:func:`scene_args`), so a call copies none; v0.n
+is computed from tri_v0 and tri_n in geometry.dot's order.
 Intersection is detached: (t, prim) depend on geometry only, never on the
 differentiable material and light tables.
 """
@@ -40,26 +42,25 @@ _FN = None
 
 
 def scene_args(scene):
-    """Scene tables in the kernel's layout, detached and contiguous:
-    sph (S,4) rows [cx, cy, cz, r]; plu (3,T,6); trin (T,3); v0n (T,) =
-    v0.n; mask (T,)."""
-    sph = torch.cat([scene.sph_c, scene.sph_r[:, None]], dim=1)
-    return (sph.detach().contiguous(),
-            scene.plu.detach().permute(0, 2, 1).contiguous(),
-            scene.tri_n.detach().contiguous(),
-            g.dot(scene.tri_v0, scene.tri_n).detach().contiguous(),
-            scene.tri_mask.detach().contiguous())
+    """The scene's own tables, in the order the kernel takes them: sph_c
+    (S,3), sph_r (S,), plu (3,6,T), tri_n (T,3), tri_v0 (T,3), tri_mask
+    (T,).  Detached views: no copy, no arithmetic, no kernel."""
+    return tuple(x.detach() for x in (scene.sph_c, scene.sph_r, scene.plu,
+                                      scene.tri_n, scene.tri_v0,
+                                      scene.tri_mask))
 
 
-def fused_intersect_plain(o, d, tmin, tmax, sph, plu, trin, v0n, mask):
+def fused_intersect_plain(o, d, tmin, tmax, sph_c, sph_r, plu, trin, tri_v0,
+                          mask):
     """Plain torch version of the kernel: (t (N,) f32, prim (N,) i32)."""
-    T = plu.shape[1]
+    T = plu.shape[2]
     ox, oy, oz = o.unbind(1)
     dx, dy, dz = d.unbind(1)
     bt = tmax
     bp = torch.full(tmax.shape, -1, dtype=torch.int32, device=o.device)
-    for s in range(sph.shape[0]):
-        cx, cy, cz, r = sph[s].unbind(0)
+    for s in range(sph_c.shape[0]):
+        cx, cy, cz = sph_c[s].unbind(0)
+        r = sph_r[s]
         bx, by, bz = ox - cx, oy - cy, oz - cz
         bq = bx * dx + by * dy + bz * dz
         cq = bx * bx + by * by + bz * bz - r * r
@@ -73,9 +74,10 @@ def fused_intersect_plain(o, d, tmin, tmax, sph, plu, trin, v0n, mask):
         bp = torch.where(ok, T + s, bp)
 
     feat = ray_features(o, d)
+    v0n = g.dot(tri_v0, trin)
     for b0 in range(0, T, _BLK):
         sl = slice(b0, min(b0 + _BLK, T))
-        w0, w1, w2 = (edge_volume(feat, plu[e, sl]) for e in range(3))
+        w0, w1, w2 = (edge_volume(feat, plu[e, :, sl].T) for e in range(3))
         pos = (w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0)
         neg = (w0 <= 0.0) & (w1 <= 0.0) & (w2 <= 0.0)
         nx, ny, nz = trin[sl].unbind(1)
@@ -104,8 +106,8 @@ def load_kernel():
         fn = lib.tpt_fused_intersect
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p,        # o, d, tmin, tmax
-                       p, i,              # sph, n_sph
-                       p, p, p, p, i,     # plu, trin, v0n, mask, n_tri
+                       p, p, i,           # sph_c, sph_r, n_sph
+                       p, p, p, p, i,     # plu, trin, tri_v0, mask, n_tri
                        i, i,              # n_rays, any_hit
                        p, p, p]           # t_out, prim_out, stream
         fn.restype = i
@@ -124,8 +126,8 @@ def _check(x, name, shape, dtype, device):
             f"{'' if x.is_contiguous() else ' (not contiguous)'}")
 
 
-def fused_intersect_cuda(o, d, tmin, tmax, sph, plu, trin, v0n, mask,
-                         any_hit=False):
+def fused_intersect_cuda(o, d, tmin, tmax, sph_c, sph_r, plu, trin, tri_v0,
+                         mask, any_hit=False):
     """Launch the kernel on CUDA tensors: (t (N,) f32, prim (N,) i32).
 
     With any_hit the kernel stops at a ray's first hit, so t < tmax is
@@ -134,16 +136,17 @@ def fused_intersect_cuda(o, d, tmin, tmax, sph, plu, trin, v0n, mask,
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"fused_intersect_cuda needs CUDA tensors, got {dev}")
-    n, S, T = o.shape[0], sph.shape[0], plu.shape[1]
+    n, S, T = o.shape[0], sph_c.shape[0], plu.shape[2]
     f32 = torch.float32
     _check(o, "o", (n, 3), f32, dev)
     _check(d, "d", (n, 3), f32, dev)
     _check(tmin, "tmin", (n,), f32, dev)
     _check(tmax, "tmax", (n,), f32, dev)
-    _check(sph, "sph", (S, 4), f32, dev)
-    _check(plu, "plu", (3, T, 6), f32, dev)
+    _check(sph_c, "sph_c", (S, 3), f32, dev)
+    _check(sph_r, "sph_r", (S,), f32, dev)
+    _check(plu, "plu", (3, 6, T), f32, dev)
     _check(trin, "trin", (T, 3), f32, dev)
-    _check(v0n, "v0n", (T,), f32, dev)
+    _check(tri_v0, "tri_v0", (T, 3), f32, dev)
     _check(mask, "mask", (T,), f32, dev)
     t = torch.empty((n,), dtype=f32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -153,9 +156,9 @@ def fused_intersect_cuda(o, d, tmin, tmax, sph, plu, trin, v0n, mask,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                 sph.data_ptr(), S, plu.data_ptr(), trin.data_ptr(),
-                 v0n.data_ptr(), mask.data_ptr(), T, n, int(any_hit),
-                 t.data_ptr(), prim.data_ptr(), stream)
+                 sph_c.data_ptr(), sph_r.data_ptr(), S, plu.data_ptr(),
+                 trin.data_ptr(), tri_v0.data_ptr(), mask.data_ptr(), T, n,
+                 int(any_hit), t.data_ptr(), prim.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"tpt_fused_intersect launch failed: "
                            f"{errstr(err).decode()} ({err})")
@@ -163,15 +166,14 @@ def fused_intersect_cuda(o, d, tmin, tmax, sph, plu, trin, v0n, mask,
     return t, prim
 
 
-def fused_intersect(o, d, tmin, tmax, sph, plu, trin, v0n, mask,
+def fused_intersect(o, d, tmin, tmax, sph_c, sph_r, plu, trin, tri_v0, mask,
                     any_hit=False):
     """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    args = (o, d, tmin, tmax, sph_c, sph_r, plu, trin, tri_v0, mask)
     if o.device.type == "cuda":
-        return fused_intersect_cuda(o, d, tmin, tmax, sph, plu, trin, v0n,
-                                    mask, any_hit=any_hit)
+        return fused_intersect_cuda(*args, any_hit=any_hit)
     if o.device.type == "cpu":
-        return fused_intersect_plain(o, d, tmin, tmax, sph, plu, trin, v0n,
-                                     mask)
+        return fused_intersect_plain(*args)
     raise ValueError(f"no intersection route for device {o.device}")
 
 

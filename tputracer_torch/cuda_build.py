@@ -43,12 +43,19 @@ def _nvcc():
     return found
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (if not cached) and load it."""
+def library_path(source: str) -> Path:
+    """Where the library of ``csrc/<source>`` is built: its name carries a
+    hash of the source and the flags."""
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (if not cached) and load it."""
+    src = CSRC / source
+    so = library_path(source)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
