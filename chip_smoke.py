@@ -30,7 +30,7 @@ Run from the root of a checkout.  Phases, each printing one line:
      mesh at 2^16 rays (one config-3 chunk): camera rays and random rays
      from inside the room, closest and any hit; rays that start on cluster
      box faces, so entries tie at te = +-0; the pair route's fallback input
-     (its unresolved rays first, the rest at tmax = 0); deep walks through
+     (the rays its slots resolve at tmax = 0); deep walks through
      a soup of large triangles at config 3's widths, where every ray admits
      more than 4 x 32 clusters, so the lanes refill their buffers; a
      ragged count; a scene with spheres and 16-slot leaves.  Timed beside
@@ -46,11 +46,15 @@ Run from the root of a checkout.  Phases, each printing one line:
   9. pairs: the expand and pair-test kernels (the pair route) against their
      plain versions, bit for bit, on the 102,410-triangle mesh at 2^16
      camera rays and at 2^16 and 2^18 random rays, closest and any hit; a
-     ragged count; Cornell "spheres" in 16-slot clusters.  The whole route
-     against the traversal kernel: prims equal except at ties, occlusion
-     equal.  Timed at 2^16 and 2^18 rays: expand, pair test, the route and
-     the traversal kernel, each beside its bound; the share of live rays
-     the K slots resolve.
+     ragged count; Cornell "spheres" in 16-slot clusters; rays whose pairs
+     sort into long runs of one cluster beside runs of a single pair; a
+     constructed tie between two slots of a ray (tie_pairs).  The whole
+     route against the traversal kernel: prims equal except at ties,
+     occlusion equal.  Timed at 2^16 and 2^18 rays: expand, pair test (its
+     fold included), the route and the traversal kernel, each beside its
+     bound (the pair test's from the Moeller-Trumbore stages the slots
+     reach, the walk's from the edge signs); the share of live rays the K
+     slots resolve.
  10. pairs render: the config-3 render of phase 7 with TPUTRACER_PAIRS=1
      (set for this phase only); it must launch the expand, pair-test and
      traversal kernels 68 times each, the intersection kernel never, give
@@ -98,13 +102,20 @@ PEAK_BYTES = 3.35e12
 # (6 sub, 6 mul, 12 min/max, 4 compares); a Pluecker + plane triangle test
 # (three 6-term dots, 6 sign compares, two 3-term dots, 6 more), of which
 # the edge part (the dots and compares, OPS_EDGES) is needed for every
-# pair and the plane part only where the three edge signs agree; a
-# Moeller-Trumbore test (csrc/pairs.cu); a sphere (csrc/intersect.cu)
+# pair and the plane part only where the three edge signs agree; a sphere
+# (csrc/intersect.cu); a Moeller-Trumbore test (csrc/pairs.cu) in the
+# stages a slot reaches: the determinant (p = d x e2: 6 mul, 3 sub;
+# e1.p: 3 mul, 2 add; |det| > 1e-12: 2) for every slot, then where
+# |det| > 1e-12 1/det, s = o - v0 and u (1 div, 3 sub, 3 mul, 2 add, 1 mul,
+# 2 compares for 0 <= u <= 1), then past the u test q = s x e1, v, t and
+# their tests (9, 6, 6, then u + v, 4 compares and the running minimum's)
 OPS_SLAB = 26
 OPS_PLANE = 56
 OPS_EDGES = 39
-OPS_MT = 55
 OPS_SPHERE = 24
+OPS_MT_DET = 16
+OPS_MT_U = 12
+OPS_MT_T = 27
 
 
 def bound(ops, nbytes):
@@ -558,6 +569,29 @@ def room_rays(n, seed):
                  for x in (o, d, tmin, tmax, tocc))
 
 
+def run_rays(sc, n_run, n_single, seed, device="cuda"):
+    """Rays whose (ray, cluster) pairs sort into long runs of one cluster
+    beside runs of a single pair: n_run rays from one corner of
+    mesh_scene's room aimed near the middle of one cluster's box, then
+    n_single rays as room_rays draws them.  A quarter of the lanes dead;
+    occlusion distances up to 6."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (x.cpu().numpy().astype(np.float64)
+              for x in (sc.clus_min, sc.clus_max))
+    c = rng.integers(0, lo.shape[0])
+    aim = lo[c] + rng.uniform(0.4, 0.6, (n_run, 3)) * (hi[c] - lo[c])
+    o = np.concatenate([np.tile([1.8, 2.8, 1.8], (n_run, 1)), rng.uniform(
+        (-1.9, 0.05, -1.9), (1.9, 2.9, 1.9), (n_single, 3))])
+    d = np.concatenate([aim - o[:n_run], rng.normal(size=(n_single, 3))])
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    n = n_run + n_single
+    tmax = np.full(n, BIG)
+    tmax[::4] = 0.0
+    tocc = np.where(tmax > 0.0, rng.uniform(0.0, 6.0, n), 0.0)
+    return tuple(torch.from_numpy(np.asarray(x, np.float32)).to(device)
+                 for x in (o, d, np.zeros(n), tmax, tocc))
+
+
 def mesh_camera_rays(scene, seed):
     """The first chunk of config 3's camera rays (coherent), with random
     occlusion distances up to 6."""
@@ -623,37 +657,64 @@ def hold_walk(rays_name, any_hit, walk_in, args, leaf, timed=True):
     return res
 
 
+def edge_agree(o, d, c, plu, valid, leaf):
+    """How many valid slots of cluster c[i] have ray i's three edge signs
+    agree, as the plain walk's _tri_block computes the signs."""
+    from tputracer_torch.accel.bruteforce import edge_volume, ray_features
+
+    lane = torch.arange(leaf, device=o.device)
+    agree = 0
+    for p0 in range(0, c.numel(), 1 << 12):
+        ps = slice(p0, p0 + (1 << 12))
+        slots = c[ps, None].long() * leaf + lane
+        blk = plu[:, :, slots].transpose(1, 2)         # (3, P, 6, leaf)
+        feat = ray_features(o[ps], d[ps])
+        w0, w1, w2 = (edge_volume(feat, blk[e]) for e in range(3))
+        pos = (w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0)
+        neg = (w0 <= 0.0) & (w1 <= 0.0) & (w2 <= 0.0)
+        agree += int(((pos | neg) & valid[slots]).sum())
+    return agree
+
+
 def walk_bound(o, d, tmin, tmax, t_final, args, leaf):
     """Least work of a closest-hit walk on this data: one slab scan of all
-    C boxes per live ray, and a plane test of every valid slot of each
-    cluster entered before the ray's final hit.  Returns (bound_ms,
-    bound_by, counts): the clusters each live ray admits (least, mean,
-    most) and enters before its final hit, which the walk visits (mean,
-    most), and the share of live rays with two or more entries at te = 0."""
+    C boxes per live ray; the edge part of the test for every valid slot
+    of each cluster entered before the ray's final hit, and the plane part
+    only where the three edge signs agree, counted from the plain walk's
+    signs on the same rays.  Returns (bound_ms, bound_by, counts): the
+    clusters each live ray admits (least, mean, most) and enters before
+    its final hit, which the walk visits (mean, most), the share of live
+    rays with two or more entries at te = 0, and the agree share of the
+    (ray, valid slot) tests."""
     from tputracer_torch.accel import clustered as cl
 
     cmin, cmax, plu, mask = args[0], args[1], args[2], args[5]
     C, T = cmin.shape[0], plu.shape[2]
-    valid = (mask > 0).float().reshape(C, leaf).sum(1)
+    valid_slot = mask > 0
+    valid = valid_slot.float().reshape(C, leaf).sum(1)
     live = tmax > tmin
-    tests = 0.0
+    tests, agree = 0.0, 0
     adm, seen_n, zero = [], [], []
     for r0 in range(0, o.shape[0], 1 << 13):
         rs = slice(r0, r0 + (1 << 13))
         te = cl.cluster_entries(o[rs], d[rs], tmin[rs], tmax[rs], cmin, cmax)
         seen = (te < t_final[rs, None]) & live[rs, None]
         tests += float((seen.float() @ valid).sum())
+        ray, c = torch.nonzero(seen, as_tuple=True)
+        agree += edge_agree(o[rs][ray], d[rs][ray], c, plu, valid_slot, leaf)
         adm.append((te < BIG).sum(1)[live[rs]])
         seen_n.append(seen.sum(1)[live[rs]])
         zero.append((te == 0.0).sum(1)[live[rs]])
-    ops = float(live.sum()) * C * OPS_SLAB + tests * OPS_PLANE
+    ops = (float(live.sum()) * C * OPS_SLAB + tests * OPS_EDGES
+           + agree * (OPS_PLANE - OPS_EDGES))
     nbytes = 4 * (12 * o.shape[0] + 6 * C + 23 * T)
     adm, seen_n = torch.cat(adm).float(), torch.cat(seen_n).float()
     counts = {"admitted_min": int(adm.min()), "admitted_mean":
               float(adm.mean()), "admitted_max": int(adm.max()),
               "visited_mean": float(seen_n.mean()),
               "visited_max": int(seen_n.max()), "zero_tie_share":
-              float((torch.cat(zero) >= 2).float().mean())}
+              float((torch.cat(zero) >= 2).float().mean()),
+              "agree_share": agree / tests if tests else 0.0}
     return (*bound(ops, nbytes), counts)
 
 
@@ -705,19 +766,16 @@ def soup_rays(n, seed, device="cuda"):
 
 def fallback_input(sc, o, d, tmin, tmax):
     """The walk's inputs in the pair route's fallback call
-    (accel.pairs._pair_traverse), closest hit from bt0 = tmax: the rays
-    the K slots leave unresolved first, the resolved ones at tmax = 0,
-    each starting from the slots' best.  Returns (inputs, unresolved)."""
+    (accel.pairs._pair_traverse), closest hit from bt0 = tmax: every ray
+    in its own order, the ones the K slots resolve at tmax = 0, each
+    starting from the slots' best.  Returns (inputs, unresolved)."""
     from tputracer_torch.accel import pairs
 
     bt0 = tmax.clone()
     bp0 = torch.full(tmax.shape, -1, dtype=torch.int32, device=o.device)
     best_t, best_p, resolved = pairs._slot_best(sc, o, d, tmin, tmax, bt0,
                                                 bp0, False)
-    _, fidx = torch.sort(resolved.to(torch.int32), stable=True)
-    walk_in = (o[fidx], d[fidx], tmin[fidx],
-               torch.where(resolved, 0.0, tmax)[fidx], best_t[fidx],
-               best_p[fidx])
+    walk_in = (o, d, tmin, torch.where(resolved, 0.0, tmax), best_t, best_p)
     return walk_in, int((~resolved & (tmax > tmin)).sum())
 
 
@@ -749,7 +807,7 @@ def phase_traverse(mesh):
             tie = res["clusters"]["zero_tie_share"]
             check(tie > 0.5, f"face rays: only {tie} tie at te = 0")
 
-    # the pair route's fallback call (as chip_profile.py builds it)
+    # the pair route's fallback call
     o, d, tmin, tmax, _ = room_rays(N_CHUNK, seed=6)
     walk_in, unresolved = fallback_input(sc, o, d, tmin, tmax)
     res = hold_walk("pair fallback", False, walk_in, args, leaf)
@@ -887,10 +945,73 @@ def skew_bound(sc, o, d, prim, t):
     return torch.where(tri, rel + 4.0 * (plane + mt), rel).float()
 
 
-def pairs_case(name, sc, rays, any_hit, timed):
+def mt_stages(o, d, tmin, bt0, sidx, cid, te, v0, e1, e2, mask, leaf):
+    """The Moeller-Trumbore stages the pair test's (wanted slot, valid leaf
+    slot) tests reach, from the plain version's arithmetic on the same
+    inputs: {"wanted": slots, "det": tests, "u": tests past |det| > 1e-12,
+    "t": tests past the u test as well}."""
+    from tputracer_torch.accel import pairs
+
+    k = cid.shape[1]
+    ray = sidx // k
+    c = cid.reshape(-1)[sidx]
+    want = (c >= 0) & (te.reshape(-1)[sidx] < bt0[ray])
+    ray, c = ray[want], c[want].long()
+    lane = torch.arange(leaf, device=o.device)
+    out = {"wanted": int(want.sum()), "det": 0, "u": 0, "t": 0}
+    for p0 in range(0, c.numel(), 1 << 14):
+        ps = slice(p0, p0 + (1 << 14))
+        slots = c[ps, None] * leaf + lane
+        ok, u, _, _ = pairs._mt(o[ray[ps]], d[ray[ps]], slots, v0, e1, e2)
+        valid = mask[slots] > 0.0
+        ok = ok & valid
+        out["det"] += int(valid.sum())
+        out["u"] += int(ok.sum())
+        out["t"] += int((ok & (u >= 0.0) & (u <= 1.0)).sum())
+    return out
+
+
+def tie_pairs(device="cuda"):
+    """A constructed pair-test case and the folded answer it must give.
+    Two clusters of 4 slots: cluster 0 holds two triangles in the plane
+    z = 1 side by side (slots 1 and 3), cluster 1 a copy of slot 1 (slot 5)
+    and a triangle at z = 2 (slot 6); slots 0, 2, 4 and 7 are masked.
+    Ray 0 hits the copies in its slots 0 and 1 (clusters 1 and 0) at the
+    same t, so the lower slot wins, prim 5 over prim 1; ray 1's slots never
+    beat its bt0 (a sphere at t = 0.5), so it keeps (bt0, bp0); ray 2 has
+    no slot; ray 3 hits only cluster 1's far triangle, in its slot 1.
+    Returns (pairtest_plain's arguments, leaf, (best_t, best_p))."""
+    from tputracer_torch.accel import pairs
+
+    tris = np.zeros((8, 3, 3), np.float32)
+    tris[1] = [[0, 0, 1], [1, 0, 1], [0, 1, 1]]
+    tris[3] = [[-1, -1, 1], [0, -1, 1], [-1, 0, 1]]
+    tris[5] = tris[1]
+    tris[6] = [[-2, -2, 2], [2, -2, 2], [-2, 2, 2]]
+    v0 = tris[:, 0]
+    big = float(np.float32(BIG))
+
+    def tensor(x, dtype=torch.float32):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    cid = tensor([[1, 0], [0, 1], [-1, -1], [0, 1]], torch.int32)
+    args = (tensor([[0.25, 0.25, 0.0], [0.25, 0.25, 0.0], [0.0, 0.0, 0.0],
+                    [-1.5, -1.5, 0.0]]),
+            tensor([[0.0, 0.0, 1.0]] * 4), tensor(np.zeros(4)),
+            tensor([big, 0.5, big, big]),
+            tensor([-1, 99, -1, -1], torch.int32),
+            pairs.cluster_order(cid, 2), cid,
+            tensor([[0.9, 0.9], [0.9, 0.9], [big, big], [0.9, 1.5]]),
+            tensor(v0), tensor(tris[:, 1] - v0), tensor(tris[:, 2] - v0),
+            tensor([0, 1, 0, 1, 0, 1, 1, 0]))
+    return args, 4, ([1.0, 0.5, big, 2.0], [5, 99, -1, 6])
+
+
+def pairs_case(name, sc, rays, any_hit, timed, route=True):
     """The expand and pair-test kernels against their plain versions on one
-    ray set and mode, bit for bit, and the whole pair route against the
-    traversal kernel; with ``timed``, each timed beside its bound."""
+    ray set and mode, bit for bit, and with ``route`` the whole pair route
+    against the traversal kernel; with ``timed``, each timed beside its
+    bound."""
     from tputracer_torch.accel import clustered as cl
     from tputracer_torch.accel import pairs
     from tputracer_torch.accel import pairs_cuda as pc
@@ -924,12 +1045,9 @@ def pairs_case(name, sc, rays, any_hit, timed):
     res["expand_max_abs_err"] = max(
         float((te - te_p).abs().max()), float((bnd - bnd_p).abs().max()))
 
-    # the pairs as the route's glue builds them
-    flat = cid.reshape(n * k)
-    _, sidx = torch.sort(torch.where(flat >= 0, flat, C + 1), stable=True)
-    ray = sidx // k
-    pargs = (o[ray], d[ray], tmin[ray], flat[sidx],
-             te.reshape(n * k)[sidx], bt0[ray], v0, e1, e2, mask)
+    # the pair test and fold on the route's own inputs
+    sidx = pairs.cluster_order(cid, C)
+    pargs = (o, d, tmin, bt0, bp0, sidx, cid, te, v0, e1, e2, mask)
 
     def test_k():
         return pc.pairtest_cuda(*pargs, leaf=leaf)
@@ -940,17 +1058,20 @@ def pairs_case(name, sc, rays, any_hit, timed):
     t_k, p_k = test_k()
     t_p, p_p = test_p()
     torch.cuda.synchronize()
-    res["pairtest_mismatch"] = {"t": int((t_k != t_p).sum()),
-                                "p": int((p_k != p_p).sum())}
+    res["pairtest_mismatch"] = {
+        "t": int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum()),
+        "p": int((p_k != p_p).sum())}
     check(sum(res["pairtest_mismatch"].values()) == 0,
           f"pairs {name}: pair test differs from its plain version "
           f"{res['pairtest_mismatch']}")
-    hit = p_p >= 0
-    res["pairtest_max_abs_err"] = (float((t_k - t_p).abs()[hit].max())
-                                   if bool(hit.any()) else 0.0)
-    wanted = (pargs[4] < pargs[5]) & (pargs[3] >= 0)
+    res["pairtest_max_abs_err"] = float((t_k - t_p).abs().max()) if n else 0.0
+    res["improved_share"] = float((t_p < bt0).float().mean()) if n else 0.0
+    stages = mt_stages(o, d, tmin, bt0, sidx, cid, te, v0, e1, e2, mask,
+                       leaf)
     res["pairs"] = n * k
-    res["wanted_pairs"] = int(wanted.sum())
+    res["wanted_pairs"] = stages["wanted"]
+    if not route:
+        return res
 
     # the whole route against the traversal kernel
     def route():
@@ -994,13 +1115,18 @@ def pairs_case(name, sc, rays, any_hit, timed):
     if not timed:
         return res
 
-    valid = (mask > 0).float().reshape(C, leaf).sum(1)
-    slots = float(valid[pargs[3][wanted].long()].sum())
     res["expand_bound_ms"], res["expand_bound_by"] = bound(
         float(live.sum()) * C * OPS_SLAB,
         4 * (n * (8 + 2 * k + 1) + 6 * C))
+    # each slot's cid, te and place in sidx (16 bytes); each ray's o, d,
+    # tmin, bt0, bp0 and (t, p); the triangle tables once
     res["pairtest_bound_ms"], res["pairtest_bound_by"] = bound(
-        slots * OPS_MT, 4 * (n * k * 12 + 10 * mask.shape[0]))
+        stages["det"] * OPS_MT_DET + stages["u"] * OPS_MT_U
+        + stages["t"] * OPS_MT_T,
+        4 * n * k * 4 + 4 * n * 11 + 4 * 10 * mask.shape[0])
+    res["mt_stage_shares"] = {
+        key: stages[key] / stages["det"] if stages["det"] else 0.0
+        for key in ("u", "t")}
     for key, fn in (("expand", expand_k), ("pairtest", test_k),
                     ("route", route), ("traverse", walk)):
         res[f"{key}_ms"] = cuda_ms(fn, 2, 5)
@@ -1008,14 +1134,17 @@ def pairs_case(name, sc, rays, any_hit, timed):
     res["expand_plain_ms"] = cuda_ms(expand_p, 1, 3)
     res["pairtest_plain_ms"] = cuda_ms(test_p, 1, 3)
     if not any_hit:
-        res["traverse_bound_ms"], res["traverse_bound_by"], _ = walk_bound(
-            o, d, tmin, tmax, t_w, targs, leaf)
+        res["traverse_bound_ms"], res["traverse_bound_by"], counts = \
+            walk_bound(o, d, tmin, tmax, t_w, targs, leaf)
+        res["traverse_agree_share"] = counts["agree_share"]
     return res
 
 
 def phase_pairs(mesh):
     """The pair route's two kernels against their plain versions, and the
     route against the traversal kernel, at config-3 chunk sizes."""
+    from tputracer_torch.accel import pairs
+    from tputracer_torch.accel import pairs_cuda as pc
     from tputracer_torch.scene import cornell_box
 
     results = []
@@ -1037,6 +1166,22 @@ def phase_pairs(mesh):
         emit("pairs", **pairs_case("spheres leaf 16", sph,
                                    random_rays(N_CHUNK, seed=8), any_hit,
                                    timed=False))
+    # long runs of one cluster beside runs of a single pair, for the
+    # kernels (the route's rays, aimed at one spot, tie more often than
+    # the random sets' bound on ties allows)
+    emit("pairs", **pairs_case("runs", mesh, run_rays(mesh, 30_000, 64,
+                                                      seed=13), False,
+                               timed=False, route=False))
+    # a constructed tie between two slots of a ray, and a ray whose slots
+    # never beat its bt0: the folded answer is known
+    args, leaf, (want_t, want_p) = tie_pairs()
+    t_k, p_k = pc.pairtest_cuda(*args, leaf=leaf)
+    t_p, p_p = pairs.pairtest_plain(*args, leaf=leaf)
+    got = {"kernel": [t_k.tolist(), p_k.tolist()],
+           "plain": [t_p.tolist(), p_p.tolist()]}
+    emit("pairs", rays="constructed tie", n_rays=len(want_p), **got)
+    check(all(v == [want_t, want_p] for v in got.values()),
+          f"pairs constructed tie: {got}, want {[want_t, want_p]}")
     return results
 
 

@@ -22,7 +22,7 @@ import torch
 
 from chip_smoke import (bounce_rays, box_soup, dead_rays, face_rays,
                         fallback_input, holey_tables, random_rays, room_rays,
-                        soup_rays, soup_scene)
+                        run_rays, soup_rays, soup_scene, tie_pairs)
 from tputracer_torch.accel import clustered as cl
 from tputracer_torch.accel import intersect_cuda as ic
 from tputracer_torch.accel import pairs
@@ -217,7 +217,7 @@ def walk_case(name):
         o, d, tmin, tmax, _ = face_rays(args[0], args[1], 20_000, seed=22)
         te = cl.cluster_entries(o, d, tmin, tmax, args[0], args[1])
         assert float(((te == 0).sum(1) >= 2).float().mean()) > 0.5
-    else:   # the pair route's fallback call: unresolved rays first
+    else:   # the pair route's fallback call: resolved rays at tmax = 0
         sc = mesh_scene(subdiv=4, device="cuda")
         walk_in, unresolved = fallback_input(sc, *room_rays(100_003,
                                                             seed=23)[:4])
@@ -247,63 +247,96 @@ def test_traverse_kernel_hard_rays(case):
         assert float((p_p >= 0).float().mean()) > 0.01
 
 
-def mesh_pairs(sc, o, d, tmin, tmax, k):
-    """The expand kernel's output and the pairs the route's glue builds
-    from it (bt = tmax: the mesh has no spheres)."""
-    cmin, cmax, v0, e1, e2, mask = pairs.pairs_args(sc)
-    cid, te, bound = pc.expand_cuda(o, d, tmin, tmax, cmin, cmax, k=k)
-    flat = cid.reshape(-1)
-    _, sidx = torch.sort(torch.where(flat >= 0, flat, sc.n_clusters + 1),
-                         stable=True)
-    ray = sidx // k
-    return (cid, te, bound), (o[ray], d[ray], tmin[ray], flat[sidx],
-                              te.reshape(-1)[sidx], tmax[ray], v0, e1, e2,
-                              mask)
+@functools.lru_cache(maxsize=None)
+def pair_sets(leaf):
+    """(mesh_scene(subdiv=4) in clusters of ``leaf`` slots, its ray sets as
+    (o, d, tmin, tmax, tocc)): room rays at a ragged count; rays that are
+    all dead; runs, whose pairs sort into long runs of one cluster beside
+    runs of a single pair."""
+    sc = mesh_scene(subdiv=4, leaf_size=leaf, device="cuda")
+    return sc, {"room": room_rays(100_003, seed=11),
+                "dead": dead_rays(20_000, seed=12),
+                "runs": run_rays(sc, 30_000, 64, seed=13)}
+
+
+def sets_for(any_hit, k):
+    """Every (leaf, scene, set name, rays (o, d, tmin, tmax)) of pair_sets
+    in one mode."""
+    for leaf in (16, 128):
+        sc, sets = pair_sets(leaf)
+        for name, (o, d, tmin, tmax, tocc) in sets.items():
+            if any_hit:
+                tmin, tmax = torch.zeros_like(tocc), tocc
+            yield leaf, sc, name, (o, d, tmin, tmax)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [4, 7, 12])
+@pytest.mark.parametrize("k", [2, 4, 7, 9, 16])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 def test_expand_kernel_matches_plain(any_hit, k):
     """The expand kernel gives expand_plain's slots and bound bit for bit
-    at ~100k rays on mesh_scene(subdiv=4), for K in each of the kernel's
-    three buffer sizes; dead lanes get no slot."""
+    on mesh_scene(subdiv=4) in 16- and 128-slot clusters, for K in each of
+    the kernel's three buffer sizes, on room rays (a ragged count), dead
+    rays and runs; dead lanes get no slot."""
     need_card()
-    sc = mesh_scene(subdiv=4, device="cuda")
-    o, d, tmin, tmax, tocc = room_rays(100_003, seed=11)
-    if any_hit:
-        tmax = tocc
-    cmin, cmax = pairs.pairs_args(sc)[:2]
-    launches = pc.EXPAND_LAUNCHES
-    got = pc.expand_cuda(o, d, tmin, tmax, cmin, cmax, k=k)
-    want = pairs.expand_plain(o, d, tmin, tmax, cmin, cmax, k=k)
-    torch.cuda.synchronize()
-    assert pc.EXPAND_LAUNCHES == launches + 1
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert bool((got[0][::4] == -1).all())
-    if k == 4:   # some rays admit more than K clusters
-        assert float((got[2] < BIG).float().mean()) > 0.01
+    for leaf, sc, name, rays in sets_for(any_hit, k):
+        cmin, cmax = pairs.pairs_args(sc)[:2]
+        launches = pc.EXPAND_LAUNCHES
+        got = pc.expand_cuda(*rays, cmin, cmax, k=k)
+        want = pairs.expand_plain(*rays, cmin, cmax, k=k)
+        torch.cuda.synchronize()
+        assert pc.EXPAND_LAUNCHES == launches + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (leaf, name)
+        dead = rays[3] <= rays[2]
+        assert bool((got[0][dead] == -1).all()), (leaf, name)
+        if name == "room" and k == 4:   # some rays admit more than K
+            assert float((got[2] < BIG).float().mean()) > 0.01
+
+
+def pair_inputs(sc, rays, k, seed):
+    """pairtest_plain's arguments on one ray set: expand_plain's slots,
+    their cluster order, and a best from elsewhere (bt0 below tmax, prim
+    7) for a third of the rays, so their farther slots are not wanted."""
+    o, d, tmin, tmax = rays
+    cmin, cmax, v0, e1, e2, mask = pairs.pairs_args(sc)
+    cid, te, _ = pairs.expand_plain(o, d, tmin, tmax, cmin, cmax, k=k)
+    rng = np.random.default_rng(seed)
+    near = torch.from_numpy(rng.uniform(size=o.shape[0]) < 1 / 3).cuda()
+    bt = torch.from_numpy(rng.uniform(0.3, 3.0, o.shape[0]).astype(
+        np.float32)).cuda()
+    bt0 = torch.where(near, torch.minimum(bt, tmax), tmax)
+    bp0 = torch.where(near, 7, -1).to(torch.int32)
+    return (o, d, tmin, bt0, bp0, pairs.cluster_order(cid, sc.n_clusters),
+            cid, te, v0, e1, e2, mask)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4, 9, 16])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
-def test_pairtest_kernel_matches_plain(any_hit):
-    """The pair-test kernel gives pairtest_plain's t and p bit for bit on
-    the cluster-sorted pairs of ~100k rays."""
+def test_pairtest_kernel_matches_plain(any_hit, k):
+    """The pair-test kernel gives pairtest_plain's folded t and p bit for
+    bit, reading the slots through the cluster order, on every set of
+    pair_sets in 16- and 128-slot clusters; and the constructed tie of
+    chip_smoke.tie_pairs."""
     need_card()
-    sc = mesh_scene(subdiv=4, device="cuda")
-    o, d, tmin, tmax, tocc = room_rays(100_003, seed=12)
-    if any_hit:
-        tmax = tocc
-    _, args = mesh_pairs(sc, o, d, tmin, tmax, pairs.K)
-    launches = pc.PAIRTEST_LAUNCHES
-    t_k, p_k = pc.pairtest_cuda(*args, leaf=sc.leaf_size)
-    t_p, p_p = pairs.pairtest_plain(*args, leaf=sc.leaf_size)
-    torch.cuda.synchronize()
-    assert pc.PAIRTEST_LAUNCHES == launches + 1
-    assert torch.equal(p_k, p_p) and torch.equal(t_k, t_p)
-    assert int((p_k >= 0).sum()) > 10_000
+    for leaf, sc, name, rays in sets_for(any_hit, k):
+        args = pair_inputs(sc, rays, k, seed=14)
+        launches = pc.PAIRTEST_LAUNCHES
+        t_k, p_k = pc.pairtest_cuda(*args, leaf=leaf)
+        t_p, p_p = pairs.pairtest_plain(*args, leaf=leaf)
+        torch.cuda.synchronize()
+        assert pc.PAIRTEST_LAUNCHES == launches + 1
+        assert torch.equal(p_k, p_p), (leaf, name)
+        assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+        improved = int((t_p < args[3]).sum())
+        if name == "dead":
+            assert improved == 0 and torch.equal(p_k, args[4])
+        else:
+            assert improved > 100, (leaf, name)
+    args, leaf, (want_t, want_p) = tie_pairs()
+    t_k, p_k = pc.pairtest_cuda(*args, leaf=leaf)
+    assert t_k.tolist() == want_t and p_k.tolist() == want_p
 
 
 @pytest.mark.cuda
@@ -351,3 +384,18 @@ def test_pairs_render_goes_through_pair_kernels(monkeypatch):
     rel = np.abs(img_p - img_d) / (1.0 + np.abs(img_d))
     assert float(rel.mean()) < 5e-4 and float((rel > 5e-3).mean()) < 0.01
     assert float(img_p.mean()) > 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", ["sort_rays", "remat"])
+def test_cuda_render_sort_rays_and_remat_keep_the_bits(option):
+    """On the card too, sort_rays (the wavefront permuted after each
+    bounce on a clustered mesh) and remat render the bits of the render
+    without them."""
+    need_card()
+    sc = mesh_scene(subdiv=4, device="cuda")
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8,
+                       rr_start=3)
+    img, _ = render_pt(sc, cfg)
+    img_opt, _ = render_pt(sc, cfg.with_(**{option: True}))
+    assert torch.equal(img, img_opt) and float(img.mean()) > 0.1

@@ -44,6 +44,7 @@ from tputracer_torch.config import RenderConfig
 from tputracer_torch.integrators.pt import render_pt
 from tputracer_torch.scene import (cornell_box, furnace, make_camera,
                                    make_scene, mesh_scene, obj_scene)
+from chip_smoke import tie_pairs
 from test_torch_clustered import random_rays, random_scene, t_args
 from test_torch_pt import golden_compare
 
@@ -70,19 +71,42 @@ def j_args(*xs):
 
 
 def jax_pairs(js, o, d, tmin, tmax):
-    """The pairs JAX's glue (pairs_tpu._pair_traverse) hands the pair-test
-    kernel: expand, then stably sorted by cluster, empty slots last."""
+    """What JAX's glue (pairs_tpu._pair_traverse) builds around the
+    pair-test kernel: expand's (cid, te) (N,K), the stable sort by cluster
+    (empty slots last) sidx, and bt0 = min(sphere best, tmax), bp0."""
     cid, te, _ = jp._expand_pallas(*j_args(o, d, tmin, tmax),
                                    js.clus_min.T, js.clus_max.T,
                                    interpret=True)
-    flat = np.asarray(cid).reshape(-1)
+    cid, te = np.array(cid), np.array(te)
+    flat = cid.reshape(-1)
     key = np.where(flat >= 0, flat, js.n_clusters + 1)
     sidx = np.argsort(key, kind="stable")
-    ray = sidx // jp.K
-    bt0 = np.minimum(np.asarray(jax_sphere_best(js, *j_args(o, d, tmin,
-                                                            tmax))[0]), tmax)
-    return (o[ray], d[ray], tmin[ray], flat[sidx].astype(np.int32),
-            np.asarray(te).reshape(-1)[sidx], bt0[ray])
+    bt0, bp0 = (np.array(x) for x in jax_sphere_best(
+        js, *j_args(o, d, tmin, tmax)))
+    return cid, te, sidx, np.minimum(bt0, tmax), bp0.astype(np.int32)
+
+
+def jax_pairtest_folded(js, o, d, tmin, cid, te, sidx, bt0, bp0):
+    """JAX's interpreted _pairtest_pallas on the sorted pairs, then JAX's
+    scatter back to slot order and front-to-back fold, as
+    pairs_tpu.py:259-274 write them."""
+    n, k = cid.shape
+    ray = sidx // k
+    pt_, pp_ = jp._pairtest_pallas(
+        *j_args(o[ray], d[ray], tmin[ray], cid.reshape(-1)[sidx],
+                te.reshape(-1)[sidx], bt0[ray]),
+        js.tri_v0.T, js.tri_e1.T, js.tri_e2.T, js.tri_mask[None, :],
+        leaf=js.leaf_size, n_clusters=js.n_clusters, interpret=True)
+    js_idx = jnp.asarray(sidx)
+    t_slots = jnp.zeros((n * k,), jnp.float32).at[js_idx].set(pt_)
+    p_slots = jnp.zeros((n * k,), jnp.int32).at[js_idx].set(pp_)
+    t_slots, p_slots = t_slots.reshape(n, k), p_slots.reshape(n, k)
+    best_t, best_p = jnp.asarray(bt0), jnp.asarray(bp0)
+    for s in range(k):
+        imp = t_slots[:, s] < best_t
+        best_t = jnp.where(imp, t_slots[:, s], best_t)
+        best_p = jnp.where(imp, p_slots[:, s], best_p)
+    return np.asarray(best_t), np.asarray(best_p)
 
 
 @pytest.mark.parametrize("case", ["closest", "mixed"])
@@ -127,33 +151,40 @@ def test_expand_dead_lane_inside_a_box():
 
 @pytest.mark.parametrize("n_spheres", [2, 0], ids=["spheres", "no_spheres"])
 def test_pairtest_plain_matches_pallas_interpret(n_spheres):
+    """The folded plain pair test against JAX's interpreted pair-test
+    kernel followed by JAX's fold: prim exact; t at rtol 1e-6 plus twice
+    the Moeller-Trumbore rounding bound where a slot improved on bt0, and
+    bt0 itself (bit for bit) where none did."""
     js, ts = random_scene(n_tris=480, n_spheres=n_spheres, leaf_size=16,
                           seed=31)
     o, d = random_rays(N, seed=34)
     tmin, tmax = mixed_window(N, seed=35)
     tmax[tmax > 0] = BIG          # closest hits, with the dead lanes kept
-    args = jax_pairs(js, o, d, tmin, tmax)
-    tj, pj = jp._pairtest_pallas(*j_args(*args), js.tri_v0.T, js.tri_e1.T,
-                                 js.tri_e2.T, js.tri_mask[None, :], leaf=16,
-                                 n_clusters=js.n_clusters, interpret=True)
-    tj, pj = np.asarray(tj), np.asarray(pj)
-    tt, pt = tp.pairtest_plain(*t_args(*(np.ascontiguousarray(x)
-                                         for x in args)),
-                               ts.tri_v0, ts.tri_e1, ts.tri_e2, ts.tri_mask,
-                               leaf=16)
-    assert pt.dtype == torch.int32
+    cid, te, sidx, bt0, bp0 = jax_pairs(js, o, d, tmin, tmax)
+    tj, pj = jax_pairtest_folded(js, o, d, tmin, cid, te, sidx, bt0, bp0)
+    tt, pt = tp.pairtest_plain(
+        *t_args(o, d, tmin, bt0), torch.from_numpy(bp0),
+        torch.from_numpy(sidx), torch.from_numpy(cid), torch.from_numpy(te),
+        ts.tri_v0, ts.tri_e1, ts.tri_e2, ts.tri_mask, leaf=16)
+    assert pt.dtype == torch.int32 and tt.shape == (N,)
     np.testing.assert_array_equal(pt.numpy(), pj)
-    hit = pj >= 0
-    assert hit.sum() >= 20
-    np.testing.assert_array_equal(tt.numpy()[~hit], tj[~hit])   # 3e38
-    err = np.abs(tt.numpy()[hit] - tj[hit])
-    _, mt = tp.rounding_bounds(ts, *t_args(args[0][hit], args[1][hit],
-                                           pj[hit], tj[hit]))
-    tol = 1e-6 * np.abs(tj[hit]) + 2.0 * mt.numpy()
+    tri = (pj >= 0) & (pj < ts.n_tri_pad) & (tj < bt0)
+    assert tri.sum() >= 20
+    np.testing.assert_array_equal(tt.numpy()[~tri], tj[~tri])
+    err = np.abs(tt.numpy()[tri] - tj[tri])
+    _, mt = tp.rounding_bounds(ts, *t_args(o[tri], d[tri], pj[tri], tj[tri]))
+    tol = 1e-6 * np.abs(tj[tri]) + 2.0 * mt.numpy()
     assert (err <= tol).all(), (err / tol).max()
-    # pairs that are not wanted (te >= bt or no cluster) report no hit
-    unwanted = ~((args[4] < args[5]) & (args[3] >= 0))
-    assert unwanted.any() and (pt.numpy()[unwanted] == -1).all()
+    assert (pt.numpy()[tmax == 0.0] == bp0[tmax == 0.0]).all()   # dead
+
+
+def test_pairtest_plain_tie_and_no_improvement():
+    """chip_smoke.tie_pairs: two slots of one ray hit copies of a triangle
+    at the same t (the lower slot wins), a ray whose slots never beat its
+    bt0 keeps (bt0, bp0), a ray without slots, a hit in a later slot."""
+    args, leaf, (want_t, want_p) = tie_pairs(device="cpu")
+    t, p = tp.pairtest_plain(*args, leaf=leaf)
+    assert p.tolist() == want_p and t.tolist() == want_t
 
 
 def unresolved_share(ts, o, d, tmin, tmax, any_hit):
@@ -293,9 +324,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     launches = (pc.EXPAND_LAUNCHES, pc.PAIRTEST_LAUNCHES)
     with pytest.raises(ValueError):
         pc.expand_cuda(o, d, tmin, tmax, cmin, cmax, k=tp.K)
-    cid = torch.zeros(8, dtype=torch.int32)
+    cid = torch.zeros((8, tp.K), dtype=torch.int32)
+    sidx = torch.arange(8 * tp.K)
+    bp0 = torch.full((8,), -1, dtype=torch.int32)
     with pytest.raises(ValueError):
-        pc.pairtest_cuda(o, d, tmin, cid, tmin, tmax, v0, e1, e2, mask,
+        pc.pairtest_cuda(o, d, tmin, tmax, bp0, sidx, cid, tmax[:, None]
+                         .expand(8, tp.K).contiguous(), v0, e1, e2, mask,
                          leaf=ts.leaf_size)
     assert (pc.EXPAND_LAUNCHES, pc.PAIRTEST_LAUNCHES) == launches
     # the dispatchers run the plain versions on CPU tensors

@@ -19,12 +19,14 @@ from tputracer.api import render as jax_render
 from tputracer.bsdf.bsdf import _fresnel_dielectric as jax_fresnel
 from tputracer.config import RenderConfig as JaxRenderConfig
 from tputracer.scene import cornell_box as jax_cornell_box
+from tputracer.scene.mesh import mesh_scene as jax_mesh_scene
 from tputracer_torch import bsdf as tbsdf
 from tputracer_torch import lights as tlights
 from tputracer_torch.api import render
 from tputracer_torch.bsdf.bsdf import _fresnel_dielectric
 from tputracer_torch.config import RenderConfig
-from tputracer_torch.scene import cornell_box
+from tputracer_torch.integrators.pt import render_pt
+from tputracer_torch.scene import cornell_box, mesh_scene
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -76,11 +78,64 @@ def test_render_chunking_is_invisible():
     assert torch.equal(a, b)
 
 
-def test_render_unsupported_options_raise():
-    for kw in (dict(sort_rays=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError):
-            render(cornell_box("boxes", device="cpu"), width=4, height=4,
-                   spp=1, **kw)
+def small_mesh():
+    """A clustered mesh at golden scale: (port scene, JAX scene)."""
+    ts = mesh_scene(subdiv=3, leaf_size=32, accel="cluster", device="cpu")
+    assert ts.n_clusters > 8
+    return ts, jax_mesh_scene(subdiv=3, leaf_size=32, accel="cluster")
+
+
+@pytest.mark.parametrize("scene, option", [
+    ("boxes", "sort_rays"), ("boxes", "remat"),
+    ("mesh", "sort_rays"), ("mesh", "remat")])
+def test_render_sort_rays_and_remat_keep_the_bits(scene, option):
+    """sort_rays (ignored on Cornell boxes, a permuted wavefront on a
+    clustered mesh) and remat render the bits of the plain render, stats
+    included."""
+    sc = (cornell_box("boxes", device="cpu") if scene == "boxes"
+          else small_mesh()[0])
+    cfg = RenderConfig(width=12, height=12, spp=2, max_bounces=4, rr_start=2,
+                       seed=3)
+    img_a, st_a = render(sc, cfg)
+    img_b, st_b = render(sc, cfg.with_(**{option: True}))
+    assert torch.equal(img_a, img_b) and float(img_a.mean()) > 1e-3
+    for k in st_a:
+        assert torch.equal(st_a[k], st_b[k]), k
+
+
+def test_sort_rays_permutes_the_wavefront(monkeypatch):
+    """On a clustered scene the sort really reorders the lanes that reach
+    the intersector, dead lanes last, and the image still has the plain
+    render's bits."""
+    from tputracer_torch.accel import intersect
+    ts, _ = small_mesh()
+    cfg = RenderConfig(width=8, height=8, spp=2, max_bounces=3, seed=4)
+    seen = []
+
+    def isect(sc, o, d, tmin, tmax):
+        seen.append(tmax.clone())
+        return intersect(sc, o, d, tmin, tmax)
+
+    plain, _ = render_pt(ts, cfg)
+    img, _ = render_pt(ts, cfg.with_(sort_rays=True), intersect_fn=isect)
+    assert torch.equal(img, plain)
+    live = seen[1] > 0   # bounce 1 comes after the first sort
+    assert not live.all() and bool(live[:int(live.sum())].all())
+
+
+def test_sort_rays_render_matches_jax():
+    """sort_rays on a clustered mesh against tputracer.api.render with
+    sort_rays, at the golden tolerances, with equal per-bounce ray
+    counts."""
+    kw = dict(width=24, height=24, spp=4, max_bounces=4, rr_start=2, seed=5,
+              sort_rays=True)
+    ts, js = small_mesh()
+    img_t, stats_t = render(ts, RenderConfig(**kw))
+    img_j, stats_j = jax_render(js, JaxRenderConfig(**kw))
+    golden_compare(img_t.numpy(), np.asarray(img_j))
+    for k in ("alive", "rays_closest", "rays_shadow"):
+        np.testing.assert_array_equal(stats_t[k].numpy(),
+                                      np.asarray(stats_j[k]), err_msg=k)
 
 
 def shading_inputs(n, seed, n_mat):

@@ -9,16 +9,20 @@ accel.intersect / accel.occluded at call time, CUDA tensors only):
      of its (K+1)-th admitted cluster (3e38 if there is none);
   2. **bin**: the N*K slots become (ray, cluster) pairs, stably sorted by
      cluster id; empty slots sort last;
-  3. **test**: each pair tests its cluster's ``leaf`` triangle slots by
-     Moeller-Trumbore against the ray's initial best ``bt0`` (never a
-     running best, so the pairs are independent of one another);
-  4. **resolve**: the K slot results are folded front to back, the first
-     strict improvement winning.  A closest-hit ray is resolved when its
-     best hit is no farther than ``bound``, an any-hit ray when it found a
-     hit or no cluster beyond its slots is entered before tmax.  The rest,
-     sorted unresolved-first, go through the union-walk kernel
-     (accel.traverse_cuda.traverse) with the slots' best as their start;
-     resolved rays get tmax = 0 there, which the walk skips.
+  3. **test and fold**: each pair tests its cluster's ``leaf`` triangle
+     slots by Moeller-Trumbore against the ray's initial best ``bt0``
+     (never a running best, so the pairs are independent of one another),
+     and each ray's K slot results are folded front to back, the first
+     strict improvement winning.  On the card one kernel does both: it
+     reads the slots through the sort's permutation, and folds with an
+     atomic minimum, so the glue makes no gather, scatter or fold;
+  4. **resolve**: a closest-hit ray is resolved when its best hit is no
+     farther than ``bound``, an any-hit ray when it found a hit or no
+     cluster beyond its slots is entered before tmax.  The union-walk
+     kernel (accel.traverse_cuda.traverse) then walks every ray from the
+     slots' best, the resolved ones at tmax = 0, which it skips.  (Sorting
+     the unresolved rays first, as the JAX package does, gives the same
+     bits; measured on the card it is slower, PERF.md.)
 
 ``expand``/``pairtest`` launch the kernels of ``csrc/pairs.cu`` on CUDA
 tensors (accel.pairs_cuda) and run ``expand_plain``/``pairtest_plain`` on
@@ -96,11 +100,10 @@ def expand_plain(o, d, tmin, tmax, cmin, cmax, k=K):
     return torch.cat(cids), torch.cat(tes), torch.cat(bounds)
 
 
-def _mt_block(o, d, tmin, bt, slots, v0, e1, e2, mask):
+def _mt(o, d, slots, v0, e1, e2):
     """Moeller-Trumbore of each row's ray against its (rows, leaf) triangle
     slots, op for op as tputracer/accel/traverse_tpu.py::mt_cluster_block:
-    (first strict minimum t (rows,), its slot column (rows,)); 3e38 where
-    no slot passes tmin < t < bt."""
+    (|det| > 1e-12, u, v, t), each (rows, leaf)."""
     v0x, v0y, v0z = v0[slots].unbind(-1)
     e1x, e1y, e1z = e1[slots].unbind(-1)
     e2x, e2y, e2z = e2[slots].unbind(-1)
@@ -119,18 +122,15 @@ def _mt_block(o, d, tmin, bt, slots, v0, e1, e2, mask):
     qz = sx * e1y - sy * e1x
     v = f * (dx * qx + dy * qy + dz * qz)
     t = f * (e2x * qx + e2y * qy + e2z * qz)
-    ok = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-          & (t > tmin[:, None]) & (t < bt[:, None]) & (mask[slots] > 0.0))
-    return _first_min(torch.where(ok, t, _BIG))
+    return ok, u, v, t
 
 
-def pairtest_plain(o, d, tmin, cid, te, bt, v0, e1, e2, mask, leaf):
-    """The pair-test kernel's plain version, one (ray, cluster) pair a row.
-
-    A pair is wanted iff te < bt and cid >= 0.  Returns (t (P,) f32,
-    p (P,) i32): the first strict minimum of the Moeller-Trumbore hits in
-    cluster cid's leaf slots with tmin < t < bt, as (t, cid*leaf + j), or
-    (3e38, -1) for a pair that is not wanted or finds no hit."""
+def _pair_rows(o, d, tmin, cid, te, bt, v0, e1, e2, mask, leaf):
+    """The per-pair test, one (ray, cluster) pair a row: a pair is wanted
+    iff te < bt and cid >= 0.  Returns (t (P,) f32, p (P,) i32): the first
+    strict minimum of the Moeller-Trumbore hits in cluster cid's leaf slots
+    with tmin < t < bt and mask > 0, as (t, cid*leaf + j), or (3e38, -1)
+    for a pair that is not wanted or finds no hit."""
     ts, ps = [], []
     lane = torch.arange(leaf, device=o.device)
     for r0 in range(0, max(o.shape[0], 1), _PAIR_ROWS):   # P = 0: one step
@@ -138,12 +138,45 @@ def pairtest_plain(o, d, tmin, cid, te, bt, v0, e1, e2, mask, leaf):
         c, b = cid[rs], bt[rs]
         want = (te[rs] < b) & (c >= 0)
         base = torch.clamp(c, min=0).long() * leaf
-        th, j = _mt_block(o[rs], d[rs], tmin[rs], b, base[:, None] + lane,
-                          v0, e1, e2, mask)
+        slots = base[:, None] + lane
+        ok, u, v, t = _mt(o[rs], d[rs], slots, v0, e1, e2)
+        ok = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+              & (t > tmin[rs, None]) & (t < b[:, None]) & (mask[slots] > 0.0))
+        th, j = _first_min(torch.where(ok, t, _BIG))
         hit = want & (th < b)
         ts.append(torch.where(hit, th, _BIG))
         ps.append(torch.where(hit, base + j, -1).to(torch.int32))
     return torch.cat(ts), torch.cat(ps)
+
+
+def _scatter(idx, src):
+    """out[idx] = src for a permutation idx."""
+    return torch.empty_like(src).scatter_(0, idx, src)
+
+
+def pairtest_plain(o, d, tmin, bt0, bp0, sidx, cid, te, v0, e1, e2, mask,
+                   leaf):
+    """The pair-test kernel's plain version: the per-pair test of every
+    slot in the sorted order sidx, then each ray's K slots folded front to
+    back from (bt0, bp0), the first strict improvement winning (slots are
+    in (te, c) order, so that is the walk's first hit).
+
+    o, d, tmin, bt0, bp0 per ray; sidx (N*K,) the permutation that sorts
+    the slots ray*K + k by cluster; cid, te (N,K) in slot order.  Returns
+    (best_t (N,) f32, best_p (N,) i32)."""
+    n, k = cid.shape
+    ray = sidx // k
+    pt_, pp_ = _pair_rows(o[ray], d[ray], tmin[ray], cid.reshape(-1)[sidx],
+                          te.reshape(-1)[sidx], bt0[ray], v0, e1, e2, mask,
+                          leaf)
+    t_slots = _scatter(sidx, pt_).reshape(n, k)
+    p_slots = _scatter(sidx, pp_).reshape(n, k)
+    best_t, best_p = bt0, bp0
+    for s in range(k):
+        imp = t_slots[:, s] < best_t
+        best_t = torch.where(imp, t_slots[:, s], best_t)
+        best_p = torch.where(imp, p_slots[:, s], best_p)
+    return best_t, best_p
 
 
 def expand(o, d, tmin, tmax, cmin, cmax, k=K):
@@ -155,10 +188,10 @@ def expand(o, d, tmin, tmax, cmin, cmax, k=K):
     raise ValueError(f"no expand route for device {o.device}")
 
 
-def pairtest(o, d, tmin, cid, te, bt, v0, e1, e2, mask, leaf):
+def pairtest(o, d, tmin, bt0, bp0, sidx, cid, te, v0, e1, e2, mask, leaf):
     """The pair-test kernel on a CUDA tensor, its plain version on a CPU
     one."""
-    args = (o, d, tmin, cid, te, bt, v0, e1, e2, mask)
+    args = (o, d, tmin, bt0, bp0, sidx, cid, te, v0, e1, e2, mask)
     if o.device.type == "cuda":
         return pairtest_cuda(*args, leaf=leaf)
     if o.device.type == "cpu":
@@ -166,35 +199,22 @@ def pairtest(o, d, tmin, cid, te, bt, v0, e1, e2, mask, leaf):
     raise ValueError(f"no pair-test route for device {o.device}")
 
 
-def _scatter(idx, src):
-    """out[idx] = src for a permutation idx."""
-    return torch.empty_like(src).scatter_(0, idx, src)
+def cluster_order(cid, n_clusters):
+    """The permutation that stably sorts the slots (cid flattened) by
+    cluster, empty slots (-1) last."""
+    flat = cid.reshape(-1)
+    return torch.sort(torch.where(flat >= 0, flat, n_clusters + 1),
+                      stable=True)[1]
 
 
 def _slot_best(scene, o, d, tmin, tmax, bt0, bp0, any_hit):
-    """Expand -> bin -> test -> fold: (best_t, best_p, resolved), the best
+    """Expand -> bin -> test and fold: (best_t, best_p, resolved), the best
     hit the K slots give each ray and whether it is final."""
-    n, C, leaf = o.shape[0], scene.n_clusters, scene.leaf_size
     cmin, cmax, v0, e1, e2, mask = pairs_args(scene)
-
     cid, tek, bound = expand(o, d, tmin, tmax, cmin, cmax)
-    flat_cid = cid.reshape(n * K)
-    key = torch.where(flat_cid >= 0, flat_cid, C + 1)
-    _, sidx = torch.sort(key, stable=True)
-    ray = sidx // K
-    pt_, pp_ = pairtest(o[ray], d[ray], tmin[ray], flat_cid[sidx],
-                        tek.reshape(n * K)[sidx], bt0[ray], v0, e1, e2, mask,
-                        leaf)
-    # back to slot order, then fold front to back (slots are in (te, c)
-    # order, so the first strict improvement is the walk's first hit)
-    t_slots = _scatter(sidx, pt_).reshape(n, K)
-    p_slots = _scatter(sidx, pp_).reshape(n, K)
-    best_t, best_p = bt0, bp0
-    for s in range(K):
-        imp = t_slots[:, s] < best_t
-        best_t = torch.where(imp, t_slots[:, s], best_t)
-        best_p = torch.where(imp, p_slots[:, s], best_p)
-
+    best_t, best_p = pairtest(o, d, tmin, bt0, bp0,
+                              cluster_order(cid, scene.n_clusters), cid, tek,
+                              v0, e1, e2, mask, scene.leaf_size)
     if any_hit:
         resolved = (best_t < tmax) | (bound >= tmax)
     else:
@@ -203,17 +223,14 @@ def _slot_best(scene, o, d, tmin, tmax, bt0, bp0, any_hit):
 
 
 def _pair_traverse(scene, o, d, tmin, tmax, bt0, bp0, any_hit):
-    """The slots' best, then the unresolved rays through the union-walk
-    kernel, sorted unresolved-first.  Returns (t, prim) as
-    accel.clustered._traverse does."""
+    """The slots' best, then the union-walk kernel from there, with
+    tmax = 0 (skipped) for the rays the slots resolve.  Returns (t, prim)
+    as accel.clustered._traverse does."""
     best_t, best_p, resolved = _slot_best(scene, o, d, tmin, tmax, bt0, bp0,
                                           any_hit)
-    _, fidx = torch.sort(resolved.to(torch.int32), stable=True)
-    ftmax = torch.where(resolved, 0.0, tmax)[fidx]
-    ft, fp = traverse(o[fidx], d[fidx], tmin[fidx], ftmax, best_t[fidx],
-                      best_p[fidx], *traverse_args(scene),
-                      leaf=scene.leaf_size, any_hit=any_hit)
-    return _scatter(fidx, ft), _scatter(fidx, fp)
+    return traverse(o, d, tmin, torch.where(resolved, 0.0, tmax), best_t,
+                    best_p, *traverse_args(scene), leaf=scene.leaf_size,
+                    any_hit=any_hit)
 
 
 def rounding_bounds(scene, o, d, prim, t):

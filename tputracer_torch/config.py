@@ -24,9 +24,9 @@ class RenderConfig:
     chunk_size: int = 1 << 20     # wavefront paths per chunk (memory knob)
     transport_radiance: bool = True
     remat: bool = False           # per-bounce recomputation in backward;
-                                  # not supported by this package yet
+                                  # the forward pass is unchanged by it
     sort_rays: bool = False       # per-bounce wavefront re-sort (clustered
-                                  # scenes only); not supported yet
+                                  # scenes only); the image keeps its bits
 
     def with_(self, **kw):
         return replace(self, **kw)

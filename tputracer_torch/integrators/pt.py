@@ -55,6 +55,20 @@ def camera_rays(scene, uid, cfg):
     return o, d
 
 
+def _coherence_key(scene, o, d, alive):
+    """Wavefront sort key: dead lanes last; live lanes grouped by origin
+    cell (4^3 grid over the cluster bounds), then direction octant."""
+    lo = torch.amin(scene.clus_min, dim=0)
+    hi = torch.amax(scene.clus_max, dim=0)
+    cell = torch.clamp(((o - lo) / (hi - lo + 1e-9) * 4.0).to(torch.int32),
+                       0, 3)
+    octant = ((d[:, 0] >= 0).to(torch.int32)
+              + 2 * (d[:, 1] >= 0).to(torch.int32)
+              + 4 * (d[:, 2] >= 0).to(torch.int32))
+    key = (cell[:, 0] * 16 + cell[:, 1] * 4 + cell[:, 2]) * 8 + octant
+    return torch.where(alive, key, 1 << 14)
+
+
 def _bounce_step(scene, decision_scene, uid, carry, *, b, cfg, isect, occl):
     """One wavefront bounce: intersect, emission, NEE, BSDF sample, RR.
 
@@ -157,16 +171,21 @@ def trace_radiance(scene, uid, cfg, decision_scene=None,
 
     intersect_fn / occluded_fn: optional intersection backends with the
     accel.intersect / accel.occluded signatures (the plain version of the
-    kernel plugs in here to be compared with it on the card)."""
-    if cfg.sort_rays:
-        raise NotImplementedError("cfg.sort_rays is not supported yet")
-    if cfg.remat:
-        raise NotImplementedError("cfg.remat is not supported yet")
+    kernel plugs in here to be compared with it on the card).
+
+    With cfg.sort_rays (clustered scenes only; ignored on others), the
+    wavefront is permuted after each bounce but the last two by a stable
+    argsort of _coherence_key, and L is put back in uid order at the end.
+    The RNG is keyed on uid and every step is per lane, so the image has
+    the bits of the unsorted render.  cfg.remat is accepted and changes
+    nothing in this forward pass; its per-bounce torch.utils.checkpoint
+    comes with gradients."""
     n = uid.shape[0]
     dev = uid.device
     isect = intersect if intersect_fn is None else intersect_fn
     occl = occluded if occluded_fn is None else occluded_fn
     o, d = camera_rays(scene, uid, cfg)
+    do_sort = cfg.sort_rays and scene.n_clusters > 0
 
     carry = (
         o, d,
@@ -187,14 +206,22 @@ def trace_radiance(scene, uid, cfg, decision_scene=None,
         alive_counts.append(n_active)
         if n_shadow is not None:
             shadow_counts.append(n_shadow)
+        if do_sort and b < cfg.max_bounces - 1:
+            perm = torch.argsort(_coherence_key(scene, carry[0], carry[1],
+                                                carry[4]), stable=True)
+            uid = uid[perm]
+            carry = tuple(x[perm] for x in carry)
 
+    L = carry[2]
+    if do_sort:
+        L = L[torch.argsort(uid)]   # back to uid order for the film
     empty = torch.zeros((0,), dtype=torch.float32, device=dev)
     stats = {
         "alive": torch.stack(alive_counts),
         "rays_closest": torch.stack(issued_counts),
         "rays_shadow": torch.stack(shadow_counts) if shadow_counts else empty,
     }
-    return carry[2], stats
+    return L, stats
 
 
 def trace_chunked(scene, uids, cfg, decision_scene=None,
