@@ -15,6 +15,12 @@ intersection kernel's path):
     the intersection kernel's device time and share of it, the traced
     span, the top kernels, and the device's idle share of the untraced
     render (1 - busy / untraced median).
+  * render_profile (config 4): the same for BASELINE config 4, BDPT on
+    Cornell "caustic" at 128x128, 8 spp, 4 bounces, chunks of 2^15, and
+    for that scene at 512x512, 16 spp, chunks of 2^18; before them a trace line per group of the intersection kernel's calls in its
+    first chunk (chip_smoke's phase-11 groups), each group's calls traced
+    20 times back to back: the kernel's device time a launch, the host's
+    time a group.
 
 Config 3, on the 102,410-triangle mesh of BASELINE config 3
 (mesh_scene(subdiv=6)) and 2^16 random rays from inside its room
@@ -540,6 +546,50 @@ def render_config1(old_ic):
             "top": top}), flush=True)
 
 
+def render_config4():
+    """Config 4's render (BDPT, Cornell caustic, 128x128, 8 spp, 4 bounces,
+    chunks of 2^15): a trace line per group of the intersection kernel's
+    calls in the first chunk (chip_smoke.bdpt_rays: per_call of the
+    group's calls, so the kernel's own time a launch beside the host's
+    time a group); then for config 4 and for the caustic scene at 512x512,
+    16 spp, chunks of 2^18, untraced times (median of 3 after a warm-up)
+    and one traced render, a render_profile line each."""
+    from chip_smoke import BDPT_CFG, bdpt_rays
+    from tputracer_torch.accel import intersect_cuda as ic
+    from tputracer_torch.config import BdptConfig
+    from tputracer_torch.integrators.bdpt import render_bdpt
+    from tputracer_torch.scene import cornell_box
+
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(**BDPT_CFG)
+    args = ic.scene_args(sc)
+    for group, calls in bdpt_rays(sc, cfg, cfg.chunk_size).items():
+        any_hit = group in ("connections", "t=1")
+
+        def kernel(calls=calls, any_hit=any_hit):
+            for rays in calls:
+                ic.fused_intersect_cuda(*rays, *args, any_hit=any_hit)
+
+        print(json.dumps({"phase": "trace", "config": 4, "group": group,
+                          "calls": len(calls), **per_call(kernel)}),
+              flush=True)
+    big = cfg.with_(width=512, height=512, spp=16, chunk_size=1 << 18)
+    for size, c in (("128x128 8 spp, chunks of 2^15", cfg),
+                    ("512x512 16 spp, chunks of 2^18", big)):
+        render_bdpt(sc, c)   # warm-up
+        walls = [cuda_ms(lambda: render_bdpt(sc, c), 0, 1) for _ in range(3)]
+        n, busy_ms, span_ms, top, b1_ms = profiled(
+            lambda: render_bdpt(sc, c), "fused_intersect")
+        wall = statistics.median(walls)
+        print(json.dumps({
+            "phase": "render_profile", "config": 4, "size": size,
+            "untraced_render_ms": wall, "untraced_all_ms": walls,
+            "kernels": n, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall, "intersect_ms": b1_ms,
+            "intersect_share": b1_ms / busy_ms, "traced_span_ms": span_ms,
+            "top": top}), flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -588,6 +638,7 @@ def main():
             raise SystemExit(f"{opts.parent}: imported this checkout, not "
                              f"the parent")
     render_config1(old and old.ic)
+    render_config4()
     if old is not None:
         ab_intersect(old.ic)
 

@@ -60,12 +60,36 @@ Run from the root of a checkout.  Phases, each printing one line:
      traversal kernels 68 times each, the intersection kernel never, give
      a mean in [0.20, 0.30] and match the default route's image at the
      golden tolerances.  Timed in turns with the default route.
+ 11. bdpt kernel: the rays trace_bdpt sends to the intersection kernel in
+     the first chunk (2^15 paths) of BASELINE config 4 (Cornell "caustic",
+     128x128, 8 spp, 4 bounces), recorded through its hooks in four groups:
+     the 5 eye-walk and 5 light-walk closest-hit calls, the 10 connection
+     and the 5 t=1 shadow calls; each call held to its plain version bit
+     for bit (t and prim, or the occlusion booleans); per group the live
+     share, the kernel's and plain times and the bound (a shadow ray's
+     work ends at its first hit in the kernel's order).
+ 12. bdpt render: the config-4 path, tputracer_torch.api.render_bdpt; it
+     must launch the intersection kernel 100 times (4 chunks x 25 calls)
+     and the traversal, expand and pair-test kernels never, give a finite
+     image whose mean is within 2% of the JAX package's and ray counts
+     within rtol 1e-3 of its counts (BDPT_REF), L_own of the first chunk bit
+     for bit that of the plain version's hooks on the card and the image
+     at the golden tolerances of that render, and a 32x32 render at the
+     golden tolerances of the CPU's.  Timed in turns with the plain hooks'
+     render.  Then, each rendered once, counted and timed: 512x512 16 spp
+     in chunks of 2^18 (peak memory), config 4 at 8 bounces, and
+     mesh_scene(subdiv=4) at 64x64 4 spp through the traversal kernel.
+ 13. progressive: render_bdpt_progressive of config 4 in passes of 2 spp
+     with a checkpoint, stopped after two passes and resumed, against the
+     single-shot render (rtol 1e-4: the splat adds in no fixed order on
+     the card); render_progressive of config 1's scene at 64x64 4 spp
+     against render (rtol 1e-5).
 
 A kernel's ``ms`` times one call alone between CUDA events, the wrapper's
 host work included (cuda_ms: the median of 5 after 2 warm-ups);
 ``device_ms`` is the card's time per call over 20 calls back to back.
 
-Then a JSON line of per-kernel results (each kernel's launches on its main
+Then the script's wall time, a JSON line of per-kernel results (each kernel's launches on its main
 path, times, and bound: the larger of the bytes it must move over 3.35
 TB/s and the float ops this run's data needs over 33.5 T ops/s, the
 card's 67 TFLOP/s float32 rate without fused multiply-adds, which the
@@ -92,6 +116,15 @@ BIG = 3.0e38
 # BASELINE config 3 (benchmarks/run.py): mesh_scene(subdiv=6)
 MESH_CFG = dict(width=256, height=256, spp=4, max_bounces=8, rr_start=3,
                 chunk_size=1 << 16)
+# BASELINE config 4 (benchmarks/run.py): cornell_box("caustic"), BDPT
+BDPT_CFG = dict(width=128, height=128, spp=8, max_bounces=4,
+                chunk_size=1 << 15)
+# the JAX package's render_bdpt of BDPT_CFG on the CPU (tputracer.api.
+# render_bdpt(cornell_box("caustic"), BdptConfig(**BDPT_CFG)) with
+# JAX_PLATFORMS=cpu, jax 0.9.0; the image mean and stats["rays_closest"],
+# stats["rays_shadow"]): correctness references, not speeds
+BDPT_REF = {"mean": 0.035571251064538956, "rays_closest": 960_467.0,
+            "rays_shadow": 927_030.0}
 
 
 # the H100's float32 rate without fused multiply-adds (its 67 TFLOP/s
@@ -296,14 +329,13 @@ def dead_rays(n, seed, device="cuda"):
                  for x in (o, d, tmin, tmax, np.zeros(n)))
 
 
-def bounce_rays(scene, cfg, bounce):
-    """The rays of bounce ``bounce`` of the first chunk of a render of
-    ``scene`` at ``cfg``, recorded through trace_radiance's intersect_fn
-    and occluded_fn hooks, which pass them on to accel.intersect and
-    accel.occluded (the kernel on the card).  Returns the closest-hit rays
-    (o, d, tmin, tmax) and the shadow rays (o, d, 0, tmax)."""
+def recording_hooks():
+    """(closest, shadow, isect, occl): intersect_fn and occluded_fn hooks
+    for an integrator that pass each call on to accel.intersect and
+    accel.occluded (the kernel on the card) and append a contiguous copy
+    of its rays to ``closest`` as (o, d, tmin, tmax) or to ``shadow`` as
+    (o, d, 0, tmax)."""
     from tputracer_torch.accel import intersect, occluded
-    from tputracer_torch.integrators.pt import trace_radiance
 
     closest, shadow = [], []
 
@@ -319,20 +351,30 @@ def bounce_rays(scene, cfg, bounce):
         shadow.append(keep(o, d, torch.zeros_like(tmax), tmax))
         return occluded(sc, o, d, tmax)
 
+    return closest, shadow, isect, occl
+
+
+def bounce_rays(scene, cfg, bounce):
+    """The rays of bounce ``bounce`` of the first chunk of a render of
+    ``scene`` at ``cfg``, recorded through trace_radiance's hooks
+    (recording_hooks).  Returns the closest-hit rays (o, d, tmin, tmax)
+    and the shadow rays (o, d, 0, tmax)."""
+    from tputracer_torch.integrators.pt import trace_radiance
+
+    closest, shadow, isect, occl = recording_hooks()
     n = min(cfg.chunk_size, cfg.width * cfg.height * cfg.spp)
     uid = torch.arange(n, dtype=torch.int64, device=scene.device)
     trace_radiance(scene, uid, cfg, intersect_fn=isect, occluded_fn=occl)
     return closest[bounce], shadow[bounce]
 
 
-def intersect_bound(o, d, live, args):
-    """(bound_ms, bound_by, agree_share) of a closest-hit call on this
-    data: every live ray tests every sphere and runs the edge part of
-    every valid triangle's test, and the plane part only where the three
-    edge signs agree, as the plain version's pos | neg mask says on the
-    same inputs; each ray's 40 bytes and each table read once.
-    agree_share: the share of (live ray, valid triangle) pairs whose signs
-    agree."""
+def intersect_work(o, d, live, args):
+    """(ops, bytes, agree_share) of a closest-hit call on this data: every
+    live ray tests every sphere and runs the edge part of every valid
+    triangle's test, and the plane part only where the three edge signs
+    agree, as the plain version's pos | neg mask says on the same inputs;
+    each ray's 40 bytes and each table read once.  agree_share: the share
+    of (live ray, valid triangle) pairs whose signs agree."""
     from tputracer_torch.accel.bruteforce import edge_volume, ray_features
 
     sph_c, plu, mask = args[0], args[2], args[5]
@@ -349,8 +391,15 @@ def intersect_bound(o, d, live, args):
     pairs = n_live * float(valid.sum())
     ops = (pairs * OPS_EDGES + agree * (OPS_PLANE - OPS_EDGES)
            + n_live * sph_c.shape[0] * OPS_SPHERE)
-    return (*bound(ops, 40 * live.numel() + 4 * sum(x.numel() for x in args)),
+    return (ops, 40 * live.numel() + 4 * sum(x.numel() for x in args),
             agree / pairs if pairs else 0.0)
+
+
+def intersect_bound(o, d, live, args):
+    """(bound_ms, bound_by, agree_share) of a closest-hit call on this
+    data, from intersect_work."""
+    ops, nbytes, agree_share = intersect_work(o, d, live, args)
+    return (*bound(ops, nbytes), agree_share)
 
 
 def intersect_case(name, rays, args, any_hit=False, timed=True):
@@ -1254,7 +1303,334 @@ def phase_pairs_render(mesh, default_img):
     return launches
 
 
+def bdpt_launches(max_bounces):
+    """Intersection calls of one BDPT chunk: 2 (B + 1) closest-hit walk
+    steps, B (B + 1) / 2 connection and B + 1 t=1 shadow calls."""
+    b = max_bounces
+    return 2 * (b + 1) + b * (b + 1) // 2 + (b + 1)
+
+
+def bdpt_rays(scene, cfg, n):
+    """The rays of the first chunk (n paths) of a BDPT render of ``scene``
+    at ``cfg``, recorded through trace_bdpt's hooks (recording_hooks).
+    Returns {group: [(o, d, tmin, tmax), ...]} for the groups "eye walk"
+    and "light walk" (closest hit) and "connections" and "t=1" (shadow
+    rays, tmin = 0)."""
+    from tputracer_torch.integrators.bdpt import trace_bdpt
+
+    closest, shadow, isect, occl = recording_hooks()
+    uid = torch.arange(n, dtype=torch.int64, device=scene.device)
+    trace_bdpt(scene, uid, cfg, intersect_fn=isect, occluded_fn=occl)
+    e, b = cfg.max_bounces + 1, cfg.max_bounces
+    conn = b * (b + 1) // 2
+    check(len(closest) == 2 * e and len(shadow) == conn + b + 1,
+          f"trace_bdpt made {len(closest)} closest-hit and {len(shadow)} "
+          f"shadow calls")
+    return {"eye walk": closest[:e], "light walk": closest[e:],
+            "connections": shadow[:conn], "t=1": shadow[conn:]}
+
+
+def any_hit_work(o, d, tmax, args):
+    """(ops, bytes) of an any-hit call on this data, in intersect_work's
+    accounting: a live ray stops at its first hit in the kernel's order
+    (spheres, then the valid triangles by slot), so it tests the spheres
+    up to its first hit sphere and, with none, the valid triangles up to
+    its first hit, the plane part only where the edge signs agree."""
+    from tputracer_torch.accel.bruteforce import edge_volume, ray_features
+
+    sph_c, sph_r, plu, trin, tri_v0, mask = args
+    live = tmax > 0.0
+    o, d, tmax = o[live], d[live], tmax[live]
+    n, S, T = o.shape[0], sph_c.shape[0], plu.shape[2]
+    sph_tests = torch.full((n,), S, device=o.device)
+    done = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    for s in range(S):
+        oc = o - sph_c[s]
+        b = (oc * d).sum(1)
+        disc = b * b - ((oc * oc).sum(1) - sph_r[s] * sph_r[s])
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        t = torch.where(-b - sq > 0.0, -b - sq, -b + sq)
+        hit = (disc > 0.0) & (t > 0.0) & (t < tmax) & ~done
+        sph_tests = torch.where(hit, s + 1, sph_tests)
+        done |= hit
+    feat = ray_features(o, d)
+    v0n = (tri_v0 * trin).sum(1)
+    hits, agrees = [], []
+    for b0 in range(0, T, 128):
+        sl = slice(b0, b0 + 128)
+        w0, w1, w2 = (edge_volume(feat, plu[e, :, sl].T) for e in range(3))
+        agree = (((w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0))
+                 | ((w0 <= 0.0) & (w1 <= 0.0) & (w2 <= 0.0)))
+        dn = d @ trin[sl].T
+        t = (v0n[sl] - o @ trin[sl].T) / torch.where(dn.abs() > 1e-12, dn,
+                                                      1.0)
+        hits.append(agree & (dn.abs() > 1e-12) & (t > 0.0)
+                    & (t < tmax[:, None]) & (mask[sl] > 0.0))
+        agrees.append(agree)
+    hit, agree = torch.cat(hits, 1), torch.cat(agrees, 1)
+    first = torch.where(hit.any(1), hit.int().argmax(1), T)
+    tested = ((torch.arange(T, device=o.device) <= first[:, None])
+              & (mask > 0.0) & ~done[:, None])
+    ops = (float(tested.sum()) * OPS_EDGES
+           + float((tested & agree).sum()) * (OPS_PLANE - OPS_EDGES)
+           + float(sph_tests.sum()) * OPS_SPHERE)
+    return ops, 40 * live.numel() + 4 * sum(x.numel() for x in args)
+
+
+def phase_bdpt_kernel():
+    """The intersection kernel against its plain version on the rays of
+    config 4's first chunk, group by group; each group timed beside its
+    bound.  Returns the groups' results and the largest t error."""
+    from tputracer_torch.accel import intersect_cuda as ic
+    from tputracer_torch.config import BdptConfig
+    from tputracer_torch.scene import cornell_box
+
+    scene = cornell_box("caustic", device="cuda")
+    args = ic.scene_args(scene)
+    cfg = BdptConfig(**BDPT_CFG)
+    results = []
+    for group, calls in bdpt_rays(scene, cfg, cfg.chunk_size).items():
+        any_hit = group in ("connections", "t=1")
+        ops = nbytes = 0.0
+        mism = {"prim": 0, "t": 0} if not any_hit else {"occluded": 0}
+        n_rays = n_live = 0
+        for o, d, tmin, tmax in calls:
+            t_k, p_k = ic.fused_intersect_cuda(o, d, tmin, tmax, *args,
+                                               any_hit=any_hit)
+            t_p, p_p = ic.fused_intersect_plain(o, d, tmin, tmax, *args)
+            if any_hit:
+                mism["occluded"] += int(((t_k < tmax) != (t_p < tmax)).sum())
+                w_ops, w_bytes = any_hit_work(o, d, tmax, args)
+            else:
+                mism["prim"] += int((p_k != p_p).sum())
+                mism["t"] += int((t_k.view(torch.int32)
+                                  != t_p.view(torch.int32)).sum())
+                w_ops, w_bytes, _ = intersect_work(o, d, tmax > tmin, args)
+            ops += w_ops
+            nbytes += w_bytes
+            n_rays += o.shape[0]
+            n_live += int((tmax > tmin).sum())
+        check(sum(mism.values()) == 0,
+              f"bdpt {group}: the kernel differs from the plain version "
+              f"{mism}")
+
+        def kernel(calls=calls, any_hit=any_hit):
+            for rays in calls:
+                ic.fused_intersect_cuda(*rays, *args, any_hit=any_hit)
+
+        def plain(calls=calls):
+            for rays in calls:
+                ic.fused_intersect_plain(*rays, *args)
+
+        res = {"group": group, "calls": len(calls), "n_rays": n_rays,
+               "mode": "any" if any_hit else "closest",
+               "live_share": n_live / n_rays, "mismatch": mism}
+        res["bound_ms"], res["bound_by"] = bound(ops, nbytes)
+        res["ms"] = cuda_ms(kernel, 2, 5)
+        res["device_ms"] = device_ms(kernel)
+        res["plain_ms"] = cuda_ms(plain, 1, 3)
+        results.append(res)
+        emit("bdpt_kernel", **res)
+    return results
+
+
+def bdpt_counts():
+    """The launch counters of the four kernels, read now."""
+    from tputracer_torch.accel import intersect_cuda as ic
+    from tputracer_torch.accel import pairs_cuda as pc
+    from tputracer_torch.accel import traverse_cuda as tc
+
+    return {"fused_intersect": ic.LAUNCHES, "traverse": tc.LAUNCHES,
+            "pair_expand": pc.EXPAND_LAUNCHES,
+            "pair_test": pc.PAIRTEST_LAUNCHES}
+
+
+def zero_counts():
+    from tputracer_torch.accel import intersect_cuda as ic
+    from tputracer_torch.accel import pairs_cuda as pc
+    from tputracer_torch.accel import traverse_cuda as tc
+
+    ic.LAUNCHES = tc.LAUNCHES = 0
+    pc.EXPAND_LAUNCHES = pc.PAIRTEST_LAUNCHES = 0
+
+
+def bdpt_once(name, scene, cfg, want):
+    """One counted render_bdpt of ``scene`` at ``cfg``, timed, that must
+    give a finite image and launch the kernels ``want`` times."""
+    from tputracer_torch.api import render_bdpt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    start = time.perf_counter()
+    img, stats = render_bdpt(scene, cfg, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = bdpt_counts()
+    check(launches == want, f"bdpt {name}: launched {launches}, want {want}")
+    check(bool(torch.isfinite(img).all()), f"bdpt {name}: non-finite pixels")
+    res = {"config": name, "launches": launches, "render_s_once": seconds,
+           "mean": float(img.mean()),
+           "issued_rays": float(stats["rays_closest"] + stats["rays_shadow"]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit("bdpt_render", **res)
+    return res
+
+
+def phase_bdpt_render():
+    """The config-4 path: api.render_bdpt of the caustics scene, counted,
+    checked against the JAX package's references and the plain version's
+    hooks, timed; then the 512x512, 8-bounce and mesh renders."""
+    from tputracer_torch.accel import intersect_plain, occluded_plain
+    from tputracer_torch.api import render_bdpt
+    from tputracer_torch.config import BdptConfig
+    from tputracer_torch.integrators import bdpt
+    from tputracer_torch.scene import cornell_box, mesh_scene
+
+    scene = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(**BDPT_CFG)
+    n_paths = cfg.width * cfg.height * cfg.spp
+    n_chunks = n_paths // cfg.chunk_size
+    want = dict(fused_intersect=n_chunks * bdpt_launches(cfg.max_bounces),
+                traverse=0, pair_expand=0, pair_test=0)
+
+    # the main path, counted: exactly this one call to render_bdpt
+    zero_counts()
+    img, stats = render_bdpt(scene, cfg, device="cuda")
+    torch.cuda.synchronize()
+    launches = bdpt_counts()
+    check(launches == want, f"bdpt render launched {launches}, want {want}")
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3),
+          f"bdpt image shape {tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), "bdpt image has non-finite pixels")
+    mean = float(img.mean())
+    check(abs(mean / BDPT_REF["mean"] - 1.0) < 0.02,
+          f"bdpt image mean {mean}, the JAX package's {BDPT_REF['mean']}")
+    rays = {k: float(stats[k]) for k in ("rays_closest", "rays_shadow")}
+    for k, v in rays.items():
+        check(abs(v / BDPT_REF[k] - 1.0) <= 1e-3,
+              f"bdpt {k} {v}, the JAX package's {BDPT_REF[k]}")
+
+    # the first chunk through the plain version's hooks: L_own bit for bit
+    uid = torch.arange(cfg.chunk_size, dtype=torch.int64,
+                       device=scene.device)
+    L_k, sp_k, _ = bdpt.trace_bdpt(scene, uid, cfg)
+    L_p, sp_p, _ = bdpt.trace_bdpt(scene, uid, cfg,
+                                   intersect_fn=intersect_plain,
+                                   occluded_fn=occluded_plain)
+    check(torch.equal(L_k, L_p),
+          "bdpt chunk: L_own differs from the plain version's hooks")
+    # the splat's index_add_ sums in no fixed order on the card
+    splat_err = float(((sp_k - sp_p).abs() / (1.0 + sp_p.abs())).max())
+    check(splat_err < 1e-5, f"bdpt chunk: splat differs from the plain "
+                            f"version's hooks by {splat_err} (rel)")
+    img_p, _ = bdpt.render_bdpt(scene, cfg, intersect_fn=intersect_plain,
+                                occluded_fn=occluded_plain)
+    parity = [golden_compare("plain on card", img.cpu().numpy(),
+                             img_p.cpu().numpy())]
+    small = BdptConfig(width=32, height=32, spp=4, max_bounces=4)
+    img_cpu, _ = render_bdpt(cornell_box("caustic", device="cpu"), small)
+    img_card, _ = render_bdpt(scene, small)
+    parity.append(golden_compare("cpu render 32x32", img_card.cpu().numpy(),
+                                 img_cpu.numpy()))
+
+    def kernel_run():
+        bdpt.render_bdpt(scene, cfg)
+
+    def plain_run():
+        bdpt.render_bdpt(scene, cfg, intersect_fn=intersect_plain,
+                         occluded_fn=occluded_plain)
+
+    kernel_run()   # warm-up
+    plain_run()
+    kernel_s, plain_s = [], []
+    for _ in range(3):   # in turns, so drift hits both alike
+        kernel_s.append(cuda_ms(kernel_run, 0, 1) / 1e3)
+        plain_s.append(cuda_ms(plain_run, 0, 1) / 1e3)
+    render_s = statistics.median(kernel_s)
+    # 2 (B + 1) walk segments and 20 strategies a path (benchmarks/run.py)
+    flat = n_paths * (2 * (cfg.max_bounces + 1) + 20)
+    issued = rays["rays_closest"] + rays["rays_shadow"]
+    emit("bdpt_render", config="caustic 128x128 8spp 4 bounces (config 4)",
+         launches=launches, mean=mean, ref_mean=BDPT_REF["mean"], **rays,
+         splat_energy=float(stats["splat_energy"]),
+         chunk_splat_max_rel_err=splat_err, parity=parity,
+         render_s=render_s, render_s_all=kernel_s,
+         flat_rays_per_s=flat / render_s, issued_rays_per_s=issued / render_s,
+         plain_render_s=statistics.median(plain_s), plain_render_s_all=plain_s)
+
+    big = cfg.with_(width=512, height=512, spp=16, chunk_size=1 << 18)
+    bdpt_once("caustic 512x512 16spp 4 bounces, chunks of 2^18", scene, big,
+              dict(want, fused_intersect=16 * bdpt_launches(4)))
+    deep = cfg.with_(max_bounces=8)
+    bdpt_once("config 4 at 8 bounces", scene, deep,
+              dict(want, fused_intersect=n_chunks * bdpt_launches(8)))
+    mesh = mesh_scene(subdiv=4, device="cuda")
+    m_cfg = BdptConfig(width=64, height=64, spp=4, max_bounces=4)
+    m_chunks = -(-64 * 64 * 4 // m_cfg.chunk_size)
+    bdpt_once("mesh subdiv=4 64x64 4spp 4 bounces", mesh, m_cfg,
+              dict(want, fused_intersect=0,
+                   traverse=m_chunks * bdpt_launches(4)))
+    return launches["fused_intersect"], img
+
+
+class _Stop(Exception):
+    pass
+
+
+def phase_progressive(bdpt_img):
+    """Progressive BDPT with a checkpoint, stopped after two passes and
+    resumed, against the single-shot image; progressive PT against
+    render."""
+    import tempfile
+
+    from tputracer_torch.api import (render, render_bdpt_progressive,
+                                     render_progressive)
+    from tputracer_torch.config import BdptConfig, RenderConfig
+    from tputracer_torch.scene import cornell_box
+
+    scene = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(**BDPT_CFG)
+    passes = []
+
+    def stop_after_two(done, _):
+        passes.append(done)
+        if len(passes) == 2:
+            raise _Stop
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "film.npz")
+        try:
+            render_bdpt_progressive(scene, cfg, spp_per_pass=2,
+                                    checkpoint_path=ck,
+                                    callback=stop_after_two)
+        except _Stop:
+            pass
+        check(passes == [2, 4], f"progressive passes {passes}")
+        with np.load(ck) as z:
+            check(int(z["spp_done"]) == 4, "checkpoint after two passes")
+        img, done = render_bdpt_progressive(scene, cfg, spp_per_pass=2,
+                                            checkpoint_path=ck)
+    ref = bdpt_img.cpu().numpy()
+    check(done == cfg.spp, f"resumed progressive did {done} spp")
+    bdpt_err = float((np.abs(img - ref) / (1e-7 + 1e-4 * np.abs(ref))).max())
+    check(np.allclose(img, ref, rtol=1e-4, atol=1e-7),
+          f"progressive bdpt differs from the single shot ({bdpt_err} of "
+          f"the tolerance)")
+
+    boxes = cornell_box("boxes", device="cuda")
+    pt_cfg = RenderConfig(width=64, height=64, spp=4, max_bounces=4)
+    pt_img, pt_done = render_progressive(boxes, pt_cfg, spp_per_pass=1)
+    pt_ref = render(boxes, pt_cfg)[0].cpu().numpy()
+    check(pt_done == 4 and np.allclose(pt_img, pt_ref, rtol=1e-5, atol=1e-7),
+          "progressive pt differs from the single shot")
+    emit("progressive", bdpt_passes=passes, bdpt_spp=done,
+         bdpt_err_over_tol=bdpt_err,
+         pt_max_abs_err=float(np.abs(pt_img - pt_ref).max()))
+
+
 def main():
+    start = time.perf_counter()
     phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
@@ -1267,6 +1643,10 @@ def main():
     phase_mesh_parity()
     p_results = phase_pairs(mesh)
     p_launches = phase_pairs_render(mesh, mesh_img)
+    phase_bdpt_kernel()
+    b_launches, bdpt_img = phase_bdpt_render()
+    phase_progressive(bdpt_img)
+    emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
     t_case = next(r for r in t_results
@@ -1281,6 +1661,7 @@ def main():
         "source": "tputracer_torch/csrc/intersect.cu",
         "replaces": "tputracer/accel/intersect_tpu.py:44",
         "launches": launches,
+        "launches_bdpt": b_launches,
         "max_abs_err": max_abs,
         "ms": main_case["ms"],
         "device_ms": main_case["device_ms"],

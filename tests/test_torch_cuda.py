@@ -4,8 +4,9 @@ The fused intersection kernel (csrc/intersect.cu), the cluster-BVH
 traversal kernel (csrc/traverse.cu) and the pair route's expand and
 pair-test kernels (csrc/pairs.cu) must agree bit for bit with their plain
 torch versions, and renders through them with renders through the plain
-versions (or, for the pair route, with the default route).  The ray sets
-are chip_smoke.py's.
+versions (or, for the pair route, with the default route); BDPT too, its
+per-path radiance bit for bit and its splat film at float tolerance.  The
+ray sets are chip_smoke.py's.
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -30,7 +31,9 @@ from tputracer_torch.accel import pairs_cuda as pc
 from tputracer_torch.accel import traverse_cuda as tc
 from tputracer_torch.accel import (intersect_clustered, intersect_plain,
                                    occluded_clustered, occluded_plain)
-from tputracer_torch.config import RenderConfig
+from tputracer_torch.api import render_bdpt, render_bdpt_progressive
+from tputracer_torch.config import BdptConfig, RenderConfig
+from tputracer_torch.integrators.bdpt import trace_bdpt_rows
 from tputracer_torch.integrators.pt import render_pt
 from tputracer_torch.scene import cornell_box, make_scene, mesh_scene
 
@@ -399,3 +402,82 @@ def test_cuda_render_sort_rays_and_remat_keep_the_bits(option):
     img, _ = render_pt(sc, cfg)
     img_opt, _ = render_pt(sc, cfg.with_(**{option: True}))
     assert torch.equal(img, img_opt) and float(img.mean()) > 0.1
+
+
+def bdpt_through(sc, cfg, isect=None, occl=None):
+    """trace_bdpt_rows of a whole BDPT render of ``sc`` at ``cfg`` through
+    the given hooks (None: accel.intersect / accel.occluded, the kernels
+    on the card): (L_own, splat, stats)."""
+    uids = torch.arange(cfg.width * cfg.height * cfg.spp, dtype=torch.int64,
+                        device=sc.device)
+    return trace_bdpt_rows(sc, uids, cfg, intersect_fn=isect,
+                           occluded_fn=occl)
+
+
+@pytest.mark.cuda
+def test_cuda_bdpt_goes_through_kernel():
+    """BDPT on the caustics scene launches the intersection kernel 25 times
+    a chunk at 4 bounces (10 walk steps, 10 connections, 5 t=1 calls) and
+    gives the plain version's per-path radiance bit for bit; the splat,
+    which index_add_ sums in no fixed order on the card, at float
+    tolerance.  No step of the kernel's render waits on the card."""
+    need_card()
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(width=64, height=64, spp=4, max_bounces=4,
+                     chunk_size=1 << 13)
+    launches, walks = ic.LAUNCHES, tc.LAUNCHES
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # nothing may wait on the card
+    try:
+        L_k, sp_k, st_k = bdpt_through(sc, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert ic.LAUNCHES == launches + 2 * 25 and tc.LAUNCHES == walks
+    L_p, sp_p, st_p = bdpt_through(sc, cfg, intersect_plain, occluded_plain)
+    assert torch.equal(L_k, L_p)
+    torch.testing.assert_close(sp_k, sp_p, rtol=1e-5, atol=1e-7)
+    assert all(torch.equal(st_k[k], st_p[k]) for k in st_p)
+    assert float(L_k.mean()) > 0.0 and float(sp_k.sum()) > 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_bdpt_goes_through_traversal_kernel():
+    """BDPT on a clustered mesh launches the traversal kernel 25 times a
+    chunk, the intersection kernel never, and gives the plain walk's
+    per-path radiance bit for bit."""
+    need_card()
+    sc = mesh_scene(subdiv=4, device="cuda")
+    cfg = BdptConfig(width=32, height=32, spp=4, max_bounces=4)
+    launches, fused = tc.LAUNCHES, ic.LAUNCHES
+    L_k, sp_k, _ = bdpt_through(sc, cfg)
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES == launches + 25 and ic.LAUNCHES == fused
+    L_p, sp_p, _ = bdpt_through(sc, cfg, intersect_clustered,
+                                occluded_clustered)
+    assert torch.equal(L_k, L_p)
+    torch.testing.assert_close(sp_k, sp_p, rtol=1e-5, atol=1e-7)
+    assert float(L_k.mean()) > 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_progressive_bdpt_matches_single_shot(tmp_path):
+    """Progressive BDPT on the card, killed after a pass and resumed from
+    its checkpoint, against the single-shot render (float tolerance: the
+    splat sums in no fixed order)."""
+    need_card()
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(width=32, height=32, spp=4, max_bounces=4)
+    ck = str(tmp_path / "film.npz")
+
+    def die(done, _):
+        raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        render_bdpt_progressive(sc, cfg, spp_per_pass=2, checkpoint_path=ck,
+                                callback=die)
+    img, done = render_bdpt_progressive(sc, cfg, spp_per_pass=2,
+                                        checkpoint_path=ck)
+    ref, _ = render_bdpt(sc, cfg)
+    assert done == cfg.spp
+    np.testing.assert_allclose(img, ref.cpu().numpy(), rtol=1e-4, atol=1e-7)

@@ -2,7 +2,8 @@
 
 A fresh interpreter refuses every import of ``jax``, ``jaxlib`` and the JAX
 package ``tputracer``, then imports tputracer_torch, builds the Cornell
-boxes scene and renders it on the CPU, then builds a clustered mesh scene
+boxes scene and renders it on the CPU, renders the caustics scene with BDPT,
+single shot and progressive, then builds a clustered mesh scene
 (with the native BVH builder and with the NumPy one) and renders that.
 """
 
@@ -40,6 +41,21 @@ img, stats = render(cornell_box("boxes", device="cpu"),
                     RenderConfig(width=8, height=8, spp=1), device="cpu")
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 assert float(img.mean()) > 0.0
+
+# BDPT, single shot and progressive
+import numpy as np
+from tputracer_torch.api import render_bdpt, render_bdpt_progressive
+from tputracer_torch.config import BdptConfig
+
+bcfg = BdptConfig(width=8, height=8, spp=2, max_bounces=2, chunk_size=128)
+caustic = cornell_box("caustic", device="cpu")
+img_b, stats_b = render_bdpt(caustic, bcfg, device="cpu")
+assert img_b.shape == (8, 8, 3) and bool(torch.isfinite(img_b).all())
+assert float(img_b.mean()) > 0.0 and float(stats_b["rays_closest"]) > 0.0
+img_p, done = render_bdpt_progressive(caustic, bcfg, spp_per_pass=1,
+                                      device="cpu")
+assert done == 2
+np.testing.assert_allclose(img_p, img_b.numpy(), rtol=1e-5, atol=1e-7)
 
 # the mesh path: BVH build (native and NumPy), mesh builder, clustered walk
 import os

@@ -1,22 +1,27 @@
-"""CLI entry point (path tracer only):
+"""CLI entry point:
 
-    python -m tputracer_torch.cli --scene boxes --size 256 --spp 16 \
-        --bounces 4 --out out.png
+    python -m tputracer_torch.cli --scene boxes --integrator pt \
+        --size 256 --spp 16 --bounces 4 --out out.png
 
 It renders on the card; ``--device cpu`` asks for the CPU.
-``--scene mesh`` is BASELINE config 3's 102,410-triangle mesh (cluster
-BVH, the traversal kernel on the card), ``--scene mesh_small`` its
-5,130-triangle variant, and ``--obj FILE`` renders an OBJ file.
+``--integrator bdpt`` renders with the bidirectional path tracer
+(BASELINE config 4 is ``--scene caustic --integrator bdpt --size 128
+--spp 8``).  ``--scene mesh`` is BASELINE config 3's 102,410-triangle mesh
+(cluster BVH, the traversal kernel on the card), ``--scene mesh_small``
+its 5,130-triangle variant, and ``--obj FILE`` renders an OBJ file.
 
-Renders twice (the first call builds the CUDA kernel on first use and
-warms up), times the second, writes the image and prints one JSON line
-with the same keys as ``python -m tputracer.cli``.
+Renders twice (the first call builds the CUDA kernels on first use and
+warms up), times the second, writes the image (scaled by ``--exposure``)
+and prints one JSON line with the same keys as ``python -m
+tputracer.cli``.  ``--profile DIR`` writes a torch.profiler trace of the
+timed render to DIR/trace.json.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 
@@ -28,12 +33,17 @@ def parser():
                              "caustic", "furnace", "mesh", "mesh_small"])
     ap.add_argument("--obj", default=None,
                     help="render an OBJ file instead of a named scene")
+    ap.add_argument("--integrator", default="pt", choices=["pt", "bdpt"])
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--bounces", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mis", action="store_true")
+    ap.add_argument("--exposure", type=float, default=1.0)
     ap.add_argument("--out", default="out.png")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the timed render "
+                         "to DIR/trace.json")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on: cuda (the default) or cpu")
     return ap
@@ -44,8 +54,8 @@ def main(argv=None):
 
     import torch
 
-    from tputracer_torch.api import render
-    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.api import render, render_bdpt
+    from tputracer_torch.config import BdptConfig, RenderConfig
     from tputracer_torch.film import save_image
     from tputracer_torch.scene import (cornell_box, furnace, mesh_scene,
                                        obj_scene)
@@ -61,25 +71,41 @@ def main(argv=None):
         scene = mesh_scene(subdiv=4, device=device)
     else:
         scene = cornell_box(args.scene, device=device)
-    cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp,
-                       max_bounces=args.bounces, seed=args.seed,
-                       mis=args.mis)
+    if args.integrator == "pt":
+        cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp,
+                           max_bounces=args.bounces, seed=args.seed,
+                           mis=args.mis)
+        run_render = render
+    else:
+        cfg = BdptConfig(width=args.size, height=args.size, spp=args.spp,
+                         max_bounces=args.bounces, seed=args.seed)
+        run_render = render_bdpt
 
     def run():
         t0 = time.perf_counter()
-        img, _ = render(scene, cfg)
+        img, _ = run_render(scene, cfg)
         img = img.cpu().numpy()      # waits for the device
         return img, time.perf_counter() - t0
 
     _, t_first = run()
-    img, dt = run()
+    if args.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            img, dt = run()
+        os.makedirs(args.profile, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    else:
+        img, dt = run()
 
-    save_image(img, args.out)
+    save_image(img, args.out, exposure=args.exposure)
     n_paths = args.size * args.size * args.spp
-    # closest-hit + shadow segments per path, every lane counted
+    # closest-hit + shadow segments per path, every lane counted; the JAX
+    # CLI counts a BDPT path the same way
     rays = n_paths * (args.bounces + 1 + args.bounces)
     print(json.dumps({
-        "scene": args.scene, "integrator": "pt",
+        "scene": args.scene, "integrator": args.integrator,
         "size": args.size, "spp": args.spp, "bounces": args.bounces,
         "compile_s": round(t_first - dt, 3), "render_s": round(dt, 4),
         "rays_per_s": round(rays / dt), "out": args.out,

@@ -30,3 +30,25 @@ class RenderConfig:
 
     def with_(self, **kw):
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class BdptConfig:
+    """Bidirectional path tracer config, field for field the JAX package's.
+
+    ``max_bounces`` mirrors RenderConfig: a full path has at most
+    ``max_bounces + 2`` vertices including the camera, so PT and BDPT with
+    equal ``max_bounces`` integrate the same path space.
+    """
+    width: int = 512
+    height: int = 512
+    spp: int = 16
+    max_bounces: int = 4          # max surface scatter events on a full path
+    seed: int = 0
+    chunk_size: int = 1 << 16     # paths per chunk, rounded down to rows
+    transport_radiance: bool = True
+    mis_power: bool = False       # False = balance heuristic; True = Veach
+                                  # power heuristic (beta=2)
+
+    def with_(self, **kw):
+        return replace(self, **kw)
