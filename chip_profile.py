@@ -21,6 +21,14 @@ intersection kernel's path):
     first chunk (chip_smoke's phase-11 groups), each group's calls traced
     20 times back to back: the kernel's device time a launch, the host's
     time a group.
+  * fit_profile (config 5): a fit step of BASELINE config 5 (Cornell
+    boxes, 128x128, 4 spp, 3 bounces, Adam), without and with remat: the
+    untraced step, then the forward pass and the backward pass (with
+    Adam's update) traced apart: kernels and busy time of each, the top
+    kernels and ops, the device time of the material lookups' backward
+    (IndexBackward0) and its share of the backward, and the idle share.
+    ``python3 -c "import chip_profile as c; c.fit_config5()"`` runs it
+    alone.
 
 Config 3, on the 102,410-triangle mesh of BASELINE config 3
 (mesh_scene(subdiv=6)) and 2^16 random rays from inside its room
@@ -590,6 +598,158 @@ def render_config4():
             "top": top}), flush=True)
 
 
+def op_device_ms(prof):
+    """[(op, calls, device ms with its children, own device ms)] of a
+    trace, from key_averages()."""
+    rows = []
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None)
+        own = getattr(e, "self_device_time_total", None)
+        rows.append((e.key, e.count,
+                     (e.cuda_time_total if total is None else total) / 1e3,
+                     (e.self_cuda_time_total if own is None else own) / 1e3))
+    return rows
+
+
+# the backward of the material lookups table[idx] (bsdf._lookup,
+# lights.sample_light): an accumulate of every lane into a few table rows
+LOOKUP_BACKWARD = "IndexBackward0"
+
+
+def fit_config5():
+    """Config 5's fit step (chip_smoke.FIT_CFG: Cornell boxes, 128x128,
+    4 spp, 3 bounces, rr_start=2, one chunk of 2^16 paths, from albedo x
+    0.5 and emission x 2, Adam at 1e-2), without and with remat: the
+    untraced step (median of 5 single steps, each between synchronizes,
+    after a warm-up), then one step traced in two parts, each ended by a
+    synchronize: the forward pass (render and loss) and the backward pass
+    with Adam's update.  A fit_profile line each: kernels and busy time of
+    each part, the intersection kernel's device time, the top kernels, the
+    top ops by their own device time, the lookups' backward (IndexBackward0
+    with its children) and its share of the backward's busy time, and the
+    idle share 1 - (forward + backward busy) / untraced step."""
+    import dataclasses
+
+    from chip_smoke import FIT_CFG, FIT_LR, fit_start, wall_s
+    from tputracer_torch import fit as tfit
+    from tputracer_torch.api import _loss_l2
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.integrators.pt import render_pt
+    from tputracer_torch.scene import cornell_box
+
+    sc = cornell_box("boxes", device="cuda")
+    base = RenderConfig(**FIT_CFG)
+    with torch.no_grad():
+        target, _ = render_pt(sc, base)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for remat in (False, True):
+        cfg = base.with_(remat=remat)
+        p = {k: v.detach().clone().requires_grad_()
+             for k, v in fit_start(sc).items()}
+        opt = tfit._adam(list(p.values()), FIT_LR)
+
+        def step():
+            tfit._fit_step_single(sc, p, target, cfg, opt)
+
+        step()   # warm-up
+        walls = wall_s(step, 5)
+        with torch.profiler.profile(activities=acts) as fwd:
+            img, _ = render_pt(dataclasses.replace(sc, **p), cfg)
+            loss = _loss_l2(img, target)
+            torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as bwd:
+            grads = torch.autograd.grad(loss, list(p.values()))
+            for v, g in zip(p.values(), grads):
+                v.grad = g
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            tfit._project(p)
+            torch.cuda.synchronize()
+        parts = {}
+        for name, prof in (("forward", fwd), ("backward", bwd)):
+            n, busy_ms, span_ms, top, b1_ms = busy(prof, "fused_intersect")
+            ops = op_device_ms(prof)
+            parts[name] = {
+                "kernels": n, "busy_ms": busy_ms, "traced_span_ms": span_ms,
+                "intersect_ms": b1_ms, "top": top,
+                "top_ops": [(k[:50], c, round(t, 4), round(s, 4)) for
+                            k, c, t, s in sorted(ops, key=lambda r: -r[3])[:10]],
+                "lookup_backward_ms": sum(t for k, _, t, _ in ops
+                                          if k == LOOKUP_BACKWARD),
+                "lookup_backward_calls": sum(c for k, c, _, _ in ops
+                                             if k == LOOKUP_BACKWARD)}
+        wall = statistics.median(walls) * 1e3
+        total_busy = parts["forward"]["busy_ms"] + parts["backward"]["busy_ms"]
+        print(json.dumps({
+            "phase": "fit_profile", "config": 5, "remat": remat,
+            "untraced_step_ms": wall,
+            "untraced_all_ms": [w * 1e3 for w in walls],
+            "kernels": parts["forward"]["kernels"]
+            + parts["backward"]["kernels"],
+            "busy_ms": total_busy, "idle_share": 1.0 - total_busy / wall,
+            "lookup_backward_share_of_backward":
+                parts["backward"]["lookup_backward_ms"]
+                / parts["backward"]["busy_ms"],
+            **parts}), flush=True)
+
+
+def lookup_backward_costs():
+    """The backward of one material lookup alone (bsdf._lookup, table[idx]
+    on Cornell boxes' (6, 3) albedo table) with the material ids of config
+    5's camera hits (128x128 4 spp: 2^16 lanes; and 512x512 4 spp: 2^20),
+    against three other ways to compute the same (6, 3) gradient: an
+    index_add_ into zeros (atomics), a one-hot matmul and a masked
+    broadcast product summed over the lanes.  A lookup_backward line each:
+    ms (cuda_ms), whether three runs give the same bits, the largest error
+    over the largest entry against table[idx]'s, and the bound: each lane's
+    id (4 bytes) and gradient row (12) read once, the table written once,
+    over 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from chip_smoke import BIG, FIT_CFG, PEAK_BYTES
+    from tputracer_torch.accel import intersect
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.integrators.pt import camera_rays
+    from tputracer_torch.scene import cornell_box
+
+    sc = cornell_box("boxes", device="cuda")
+    table = sc.mat_albedo.detach().clone().requires_grad_()
+    M = table.shape[0]
+    rows = torch.arange(M, device="cuda")
+    for size in (128, 512):
+        cfg = RenderConfig(**dict(FIT_CFG, width=size, height=size))
+        n = size * size * cfg.spp
+        uid = torch.arange(n, dtype=torch.int64, device="cuda")
+        o, d = camera_rays(sc, uid, cfg)
+        zeros = torch.zeros((n,), device="cuda")
+        idx = intersect(sc, o, d, zeros, torch.full_like(zeros, BIG)).mat
+        grad = torch.rand((n, 3), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+        ways = {
+            "table[idx] (IndexBackward0)": lambda: torch.autograd.grad(
+                table[idx.long()], [table], grad)[0],
+            "index_add_": lambda: torch.zeros_like(table).index_add_(
+                0, idx, grad),
+            "one-hot matmul": lambda: F.one_hot(idx.long(), M).to(
+                grad.dtype).T @ grad,
+            "masked sum": lambda: ((idx[:, None] == rows)[:, :, None]
+                                   * grad[:, None, :]).sum(0),
+        }
+        ref = ways["table[idx] (IndexBackward0)"]()
+        for name, fn in ways.items():
+            outs = [fn() for _ in range(3)]
+            print(json.dumps({
+                "phase": "lookup_backward", "lanes": n, "way": name,
+                "ms": cuda_ms(fn, 2, 5),
+                "repeats_bits": all(torch.equal(x, outs[0]) for x in outs),
+                "max_rel_err": float((outs[0] - ref).abs().max()
+                                     / ref.abs().max()),
+                "bound_ms": (n * 16 + M * 12) / PEAK_BYTES * 1e3,
+                "rows_hit": torch.bincount(idx.long(), minlength=M).tolist()}),
+                flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -639,6 +799,8 @@ def main():
                              f"the parent")
     render_config1(old and old.ic)
     render_config4()
+    fit_config5()
+    lookup_backward_costs()
     if old is not None:
         ab_intersect(old.ic)
 

@@ -84,6 +84,26 @@ Run from the root of a checkout.  Phases, each printing one line:
      single-shot render (rtol 1e-4: the splat adds in no fixed order on
      the card); render_progressive of config 1's scene at 64x64 4 spp
      against render (rtol 1e-5).
+ 14. fit: the config-5 path, tputracer_torch.fit.fit of Cornell "boxes" at
+     128x128, 4 spp, 3 bounces, rr_start=2, one chunk of 2^16 paths, from
+     albedo x 0.5 and emission x 2 toward the true scene's image, Adam at
+     1e-2: 24 steps in chains of 8 with a checkpoint every 8; it must
+     launch the intersection kernel 7 times a step (4 closest-hit and 3
+     shadow calls), 14 with remat (the backward pass recomputes each
+     bounce), the other kernels never, and the loss must fall.  Three
+     identical grad_render calls say whether the gradients repeat their
+     bits on the card; a fit stopped after 16 steps and resumed to 24
+     must equal the uninterrupted one bit for bit if they do, else at
+     rtol 1e-5.  The plain hooks' loss bit for bit and gradients (bit for
+     bit, or rtol 1e-5 of the largest entry); the CPU's grad_render at
+     32x32 (loss rtol 1e-6, gradients 1e-5 of the largest entry); remat's
+     loss bit for bit and gradients at rtol 1e-5.  Chains of 8 timed with
+     and without remat (steps/s, forward+backward rays/s).  A BDPT fit
+     (boxes 64x64 4 spp 3 bounces, 6 steps: bdpt_launches(3) a step, the
+     loss falls); grad_render on mesh_scene(subdiv=4) at 64x64 through the
+     traversal kernel (7 launches, finite gradients); grad_render at
+     256x256 16 spp 4 bounces in one chunk of 2^20 paths without and with
+     remat, whose peak memory must be lower.
 
 A kernel's ``ms`` times one call alone between CUDA events, the wrapper's
 host work included (cuda_ms: the median of 5 after 2 warm-ups);
@@ -100,6 +120,7 @@ exits non-zero without that last line; there is no CPU fallback.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -125,6 +146,13 @@ BDPT_CFG = dict(width=128, height=128, spp=8, max_bounces=4,
 # stats["rays_shadow"]): correctness references, not speeds
 BDPT_REF = {"mean": 0.035571251064538956, "rays_closest": 960_467.0,
             "rays_shadow": 927_030.0}
+# BASELINE config 5 (benchmarks/run.py:187-247): cornell_box("boxes"),
+# inverse rendering from albedo x 0.5 and emission x 2 toward the true
+# scene's image, Adam at 1e-2, chains of 8 steps
+FIT_CFG = dict(width=128, height=128, spp=4, max_bounces=3, rr_start=2,
+               chunk_size=1 << 16)
+FIT_LR = 1e-2
+FIT_K = 8
 
 
 # the H100's float32 rate without fused multiply-adds (its 67 TFLOP/s
@@ -1434,7 +1462,7 @@ def phase_bdpt_kernel():
     return results
 
 
-def bdpt_counts():
+def launch_counts():
     """The launch counters of the four kernels, read now."""
     from tputracer_torch.accel import intersect_cuda as ic
     from tputracer_torch.accel import pairs_cuda as pc
@@ -1466,7 +1494,7 @@ def bdpt_once(name, scene, cfg, want):
     img, stats = render_bdpt(scene, cfg, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches = bdpt_counts()
+    launches = launch_counts()
     check(launches == want, f"bdpt {name}: launched {launches}, want {want}")
     check(bool(torch.isfinite(img).all()), f"bdpt {name}: non-finite pixels")
     res = {"config": name, "launches": launches, "render_s_once": seconds,
@@ -1498,7 +1526,7 @@ def phase_bdpt_render():
     zero_counts()
     img, stats = render_bdpt(scene, cfg, device="cuda")
     torch.cuda.synchronize()
-    launches = bdpt_counts()
+    launches = launch_counts()
     check(launches == want, f"bdpt render launched {launches}, want {want}")
     check(tuple(img.shape) == (cfg.height, cfg.width, 3),
           f"bdpt image shape {tuple(img.shape)}")
@@ -1629,6 +1657,257 @@ def phase_progressive(bdpt_img):
          pt_max_abs_err=float(np.abs(pt_img - pt_ref).max()))
 
 
+def fit_start(scene):
+    """Config 5's starting tables: albedo x 0.5, emission x 2."""
+    return {"mat_albedo": scene.mat_albedo * 0.5,
+            "mat_emission": scene.mat_emission * 2.0}
+
+
+def hooked_grads(scene, params, target, cfg, isect=None, occl=None):
+    """api.grad_render's loss and gradients, through render_pt's
+    intersection hooks (None: accel.intersect / accel.occluded)."""
+    from tputracer_torch.api import _loss_and_grads
+    from tputracer_torch.integrators.pt import render_pt
+
+    p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    render = functools.partial(render_pt, intersect_fn=isect,
+                               occluded_fn=occl)
+    return _loss_and_grads(render, scene, p, target, cfg)
+
+
+def grads_equal(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def grads_rel_err(a, b):
+    """The largest |a - b| of a table over the largest |b| of that table."""
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max()
+                     / b[k].abs().max().clamp(min=1e-30)) for k in a)
+
+
+def counted(fn, want, what):
+    """fn() with the launch counters set to 0 just before it, which must
+    launch the kernels ``want`` times; returns (fn's result, counts)."""
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(launches == want, f"{what}: launched {launches}, want {want}")
+    return out, launches
+
+
+def wall_s(fn, reps):
+    """Seconds of each of ``reps`` calls of fn, each between
+    torch.cuda.synchronize() calls."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_fit():
+    """The config-5 path: tputracer_torch.fit.fit of Cornell boxes at
+    128x128, 4 spp, 3 bounces, counted (7 intersection launches a step, 14
+    with remat); the gradients' bits across repeated calls; the plain
+    hooks' loss and gradients; the CPU's at 32x32; remat against none;
+    a resume against the uninterrupted fit; chains timed with and without
+    remat; a BDPT fit; a clustered mesh through the traversal kernel; and
+    peak memory at 2^20 paths with and without remat."""
+    import tempfile
+
+    from tputracer_torch import fit as tfit
+    from tputracer_torch.accel import intersect_plain, occluded_plain
+    from tputracer_torch.api import grad_render
+    from tputracer_torch.config import BdptConfig, RenderConfig
+    from tputracer_torch.integrators.bdpt import render_bdpt
+    from tputracer_torch.integrators.pt import render_pt
+    from tputracer_torch.scene import cornell_box, mesh_scene
+
+    scene = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(**FIT_CFG)
+    paths = cfg.width * cfg.height * cfg.spp
+    # closest-hit calls on bounces 0..B and shadow calls on 0..B-1, a chunk
+    per_step = -(-paths // cfg.chunk_size) * (2 * cfg.max_bounces + 1)
+    none = dict(fused_intersect=0, traverse=0, pair_expand=0, pair_test=0)
+    with torch.no_grad():
+        target, _ = render_pt(scene, cfg)
+    init = fit_start(scene)
+    steps = 3 * FIT_K
+    kw = dict(cfg=cfg, learning_rate=FIT_LR, init=init, log_every=0,
+              steps_per_dispatch=FIT_K, checkpoint_every=FIT_K)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the main path, counted: exactly this one call to fit
+        (_, p_full, h_full), launches = counted(
+            lambda: tfit.fit(scene, target, steps=steps,
+                             checkpoint_path=os.path.join(tmp, "full.npz"),
+                             **kw),
+            dict(none, fused_intersect=steps * per_step), "config-5 fit")
+        losses = [h["loss"] for h in h_full]
+        check(len(losses) == steps and bool(np.isfinite(losses).all()),
+              f"config-5 fit losses {losses}")
+        check(losses[-1] < losses[0], f"config-5 fit: the loss did not fall "
+                                      f"({losses[0]} -> {losses[-1]})")
+        (_, _, h_remat), launches_remat = counted(
+            lambda: tfit.fit(scene, target, steps=FIT_K,
+                             **dict(kw, cfg=cfg.with_(remat=True))),
+            dict(none, fused_intersect=FIT_K * 2 * per_step),
+            "config-5 fit with remat")
+        check(h_remat[0]["loss"] == losses[0],
+              "remat changed the first step's loss")
+
+        # do identical calls give the same gradient bits on the card?
+        runs = [grad_render(scene, init, target, cfg) for _ in range(3)]
+        repeat_bits = all(torch.equal(r[0], runs[0][0])
+                          and grads_equal(r[1], runs[0][1]) for r in runs[1:])
+        repeat_err = max(grads_rel_err(r[1], runs[0][1]) for r in runs[1:])
+
+        # stop after 16 steps, resume to 24
+        ck = os.path.join(tmp, "stop.npz")
+        tfit.fit(scene, target, steps=2 * FIT_K, checkpoint_path=ck, **kw)
+        _, p_res, h_res = tfit.fit(scene, target, steps=steps,
+                                   checkpoint_path=ck, **kw)
+    res_losses = [h["loss"] for h in h_res]
+    check([h["step"] for h in h_res] == list(range(2 * FIT_K, steps)),
+          f"resumed at {h_res[0]['step']}")
+    resume_bits = (res_losses == losses[2 * FIT_K:]
+                   and grads_equal(p_res, p_full))
+    resume_err = max(grads_rel_err(p_res, p_full),
+                     float(np.max(np.abs(np.array(res_losses)
+                                         / np.array(losses[2 * FIT_K:]) - 1))))
+    # bit for bit where the gradients repeat their bits; else rtol 1e-5
+    check(resume_bits if repeat_bits else resume_err < 1e-5,
+          f"resume differs from the uninterrupted fit by {resume_err} (rel; "
+          f"gradients repeat their bits: {repeat_bits})")
+
+    # the plain version's hooks: the same loss bits, the gradients too
+    loss_k, g_k = hooked_grads(scene, init, target, cfg)
+    loss_p, g_p = hooked_grads(scene, init, target, cfg, intersect_plain,
+                               occluded_plain)
+    plain_err = grads_rel_err(g_k, g_p)
+    check(torch.equal(loss_k, loss_p), "plain hooks: the loss differs")
+    check(grads_equal(g_k, g_p) if repeat_bits else plain_err < 1e-5,
+          f"plain hooks: gradients differ by {plain_err} (rel)")
+
+    # the CPU's grad_render at 32x32: an H100 read the loss equal and the
+    # gradients 9.5e-8 off (rel), so 1e-6 and 1e-5 leave ~100x of room and
+    # fail a wrong entry of a small table row or a lower-precision backward
+    small = cfg.with_(width=32, height=32)
+    cpu_scene = cornell_box("boxes", device="cpu")
+    with torch.no_grad():
+        target_c, _ = render_pt(cpu_scene, small)
+    loss_c, g_c = grad_render(cpu_scene, fit_start(cpu_scene), target_c, small)
+    loss_g, g_g = grad_render(scene, init, target_c, small)
+    cpu_loss_err = abs(float(loss_g) / float(loss_c) - 1.0)
+    cpu_err = grads_rel_err(g_g, g_c)
+    check(cpu_loss_err < 1e-6 and cpu_err < 1e-5,
+          f"card against cpu 32x32: loss {cpu_loss_err}, grads {cpu_err} "
+          f"(rel)")
+
+    # remat against none: the loss bits, the gradients at rtol 1e-5
+    (loss_r, g_r), _ = counted(
+        lambda: grad_render(scene, init, target, cfg, remat=True),
+        dict(none, fused_intersect=2 * per_step), "grad_render with remat")
+    loss_0, g_0 = runs[0]
+    check(torch.equal(loss_r, loss_0), "remat changed the loss")
+    remat_err = grads_rel_err(g_r, g_0)
+    check(all(torch.allclose(g_r[k], g_0[k], rtol=1e-5,
+                             atol=1e-7 * float(g_0[k].abs().max()))
+              for k in g_0), f"remat: gradients differ by {remat_err} (rel)")
+
+    # chains of FIT_K steps, timed between synchronizes
+    timing = {}
+    for remat in (False, True):
+        c = cfg.with_(remat=remat)
+        p = {k: v.detach().clone().requires_grad_() for k, v in init.items()}
+        opt = tfit._adam(list(p.values()), FIT_LR)
+        tfit._fit_chain_single(scene, p, target, c, opt, 1)   # warm-up
+        secs = wall_s(lambda: tfit._fit_chain_single(scene, p, target, c,
+                                                     opt, FIT_K), 5)
+        med = statistics.median(secs)
+        timing["remat" if remat else "plain"] = {
+            "chain_s_all": secs, "steps_per_s": FIT_K / med,
+            # benchmarks/run.py:241-242's count: K x paths x (2B + 1)
+            "fwd_bwd_rays_per_s":
+                FIT_K * paths * (2 * cfg.max_bounces + 1) / med}
+    emit("fit", config="boxes 128x128 4spp 3 bounces rr_start=2 (config 5)",
+         steps=steps, launches=launches,
+         launches_fit_step=launches["fused_intersect"] / steps,
+         launches_fit_step_remat=launches_remat["fused_intersect"] / FIT_K,
+         losses=losses, remat_losses=[h["loss"] for h in h_remat],
+         fitted={k: v.cpu().tolist() for k, v in p_full.items()},
+         grad_repeat_bitwise=repeat_bits, grad_repeat_max_rel_err=repeat_err,
+         resume_bitwise=resume_bits, resume_max_rel_err=resume_err,
+         plain_grads_bitwise=grads_equal(g_k, g_p),
+         plain_grads_max_rel_err=plain_err,
+         cpu_32x32_loss_rel_err=cpu_loss_err, cpu_32x32_grads_rel_err=cpu_err,
+         remat_grads_max_rel_err=remat_err, **timing)
+
+    # a BDPT fit: 6 steps, 64x64 4 spp 3 bounces, one chunk
+    bcfg = BdptConfig(width=64, height=64, spp=4, max_bounces=3)
+    with torch.no_grad():
+        b_target, _ = render_bdpt(scene, bcfg)
+    b_chunks = -(-bcfg.width * bcfg.height * bcfg.spp // bcfg.chunk_size)
+    t0 = time.perf_counter()
+    (_, _, h_b), b_launches = counted(
+        lambda: tfit.fit(scene, b_target, cfg=bcfg, steps=6,
+                         learning_rate=FIT_LR, init=init, log_every=0,
+                         steps_per_dispatch=3, integrator="bdpt"),
+        dict(none, fused_intersect=6 * b_chunks * bdpt_launches(3)),
+        "bdpt fit")
+    b_seconds = time.perf_counter() - t0
+    b_losses = [h["loss"] for h in h_b]
+    check(bool(np.isfinite(b_losses).all()) and b_losses[-1] < b_losses[0],
+          f"bdpt fit losses {b_losses}")
+
+    # a clustered mesh: gradients through the traversal kernel
+    mesh = mesh_scene(subdiv=4, device="cuda")
+    mcfg = cfg.with_(width=64, height=64)
+    with torch.no_grad():
+        m_target, _ = render_pt(mesh, mcfg)
+    (m_loss, m_g), m_launches = counted(
+        lambda: grad_render(mesh, fit_start(mesh), m_target, mcfg),
+        dict(none, traverse=2 * mcfg.max_bounces + 1), "mesh grad_render")
+    check(bool(torch.isfinite(m_loss))
+          and all(bool(torch.isfinite(g).all()) for g in m_g.values())
+          and float(m_g["mat_albedo"].abs().sum()) > 0.0,
+          "mesh grad_render: gradients not finite or all zero")
+    emit("fit_more", bdpt_fit="boxes 64x64 4spp 3 bounces, 6 steps",
+         bdpt_launches=b_launches, bdpt_losses=b_losses,
+         bdpt_fit_s=b_seconds, mesh="mesh_scene(subdiv=4) 64x64 4spp",
+         mesh_launches=m_launches, mesh_loss=float(m_loss))
+
+    # memory: one chunk of 2^20 paths with and without remat
+    big = cfg.with_(width=256, height=256, spp=16, max_bounces=4,
+                    chunk_size=1 << 20)
+    with torch.no_grad():
+        big_target, _ = render_pt(scene, big)
+    mem = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _ = grad_render(scene, init, big_target, big, remat=remat)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        mem[remat] = {"loss": float(loss),
+                      "seconds": time.perf_counter() - t0,
+                      "peak_gb": peak / 1e9,
+                      "peak_above_held_gb": (peak - held) / 1e9}
+    check(mem[True]["peak_gb"] < mem[False]["peak_gb"],
+          f"remat did not lower peak memory: {mem}")
+    check(mem[True]["loss"] == mem[False]["loss"], "remat changed the loss")
+    emit("fit_memory", config="boxes 256x256 16spp 4 bounces, one chunk of "
+                              "2^20 paths", plain=mem[False], remat=mem[True])
+    return (launches["fused_intersect"] / steps,
+            launches_remat["fused_intersect"] / FIT_K)
+
+
 def main():
     start = time.perf_counter()
     phase_device()
@@ -1646,6 +1925,7 @@ def main():
     phase_bdpt_kernel()
     b_launches, bdpt_img = phase_bdpt_render()
     phase_progressive(bdpt_img)
+    fit_step, fit_step_remat = phase_fit()
     emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
@@ -1662,6 +1942,8 @@ def main():
         "replaces": "tputracer/accel/intersect_tpu.py:44",
         "launches": launches,
         "launches_bdpt": b_launches,
+        "launches_fit_step": fit_step,
+        "launches_fit_step_remat": fit_step_remat,
         "max_abs_err": max_abs,
         "ms": main_case["ms"],
         "device_ms": main_case["device_ms"],

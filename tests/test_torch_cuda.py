@@ -5,8 +5,9 @@ traversal kernel (csrc/traverse.cu) and the pair route's expand and
 pair-test kernels (csrc/pairs.cu) must agree bit for bit with their plain
 torch versions, and renders through them with renders through the plain
 versions (or, for the pair route, with the default route); BDPT too, its
-per-path radiance bit for bit and its splat film at float tolerance.  The
-ray sets are chip_smoke.py's.
+per-path radiance bit for bit and its splat film at float tolerance;
+gradients and fits (config 5) too, bit for bit.  The ray sets are
+chip_smoke.py's.
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -481,3 +482,74 @@ def test_cuda_progressive_bdpt_matches_single_shot(tmp_path):
     ref, _ = render_bdpt(sc, cfg)
     assert done == cfg.spp
     np.testing.assert_allclose(img, ref.cpu().numpy(), rtol=1e-4, atol=1e-7)
+
+
+def fit_problem(size=64):
+    """Config 5's problem at ``size``^2 on the card: (scene, cfg, target,
+    start tables)."""
+    from chip_smoke import FIT_CFG, fit_start
+
+    sc = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(**dict(FIT_CFG, width=size, height=size))
+    with torch.no_grad():
+        target, _ = render_pt(sc, cfg)
+    return sc, cfg, target, fit_start(sc)
+
+
+@pytest.mark.cuda
+def test_cuda_grad_kernel_hooks_match_plain():
+    """Under autograd the kernel's render gives the plain hooks' loss and
+    gradients bit for bit: the forward pass is bit-equal, and the lookups'
+    backward (a sort, then an accumulate in sorted order) repeats its bits
+    on the card."""
+    from chip_smoke import hooked_grads
+
+    need_card()
+    sc, cfg, target, start = fit_problem()
+    loss_k, g_k = hooked_grads(sc, start, target, cfg)
+    loss_p, g_p = hooked_grads(sc, start, target, cfg, intersect_plain,
+                               occluded_plain)
+    assert torch.equal(loss_k, loss_p)
+    for k in g_p:
+        assert torch.equal(g_k[k], g_p[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_cuda_grad_render_launches(remat):
+    """grad_render at config 5's widths launches the intersection kernel 7
+    times (4 closest-hit and 3 shadow calls), and 14 with remat, whose
+    backward pass recomputes every bounce; the traversal kernel never."""
+    from tputracer_torch.api import grad_render
+
+    need_card()
+    sc, cfg, target, start = fit_problem()
+    launches, walks = ic.LAUNCHES, tc.LAUNCHES
+    loss, grads = grad_render(sc, start, target, cfg, remat=remat)
+    torch.cuda.synchronize()
+    assert ic.LAUNCHES - launches == (14 if remat else 7)
+    assert tc.LAUNCHES == walks
+    assert loss.is_cuda and all(g.is_cuda for g in grads.values())
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+@pytest.mark.cuda
+def test_cuda_fit_resume_matches_uninterrupted(tmp_path):
+    """A fit on the card stopped at step 3 and resumed from its checkpoint
+    equals the uninterrupted fit bit for bit: the later losses and the
+    parameters."""
+    from tputracer_torch.fit import fit
+
+    need_card()
+    sc, cfg, target, start = fit_problem(32)
+    kw = dict(cfg=cfg, init=start, learning_rate=1e-2, log_every=0,
+              checkpoint_every=3, steps_per_dispatch=3)
+    _, p_full, h_full = fit(sc, target, steps=6,
+                            checkpoint_path=str(tmp_path / "full.npz"), **kw)
+    ck = str(tmp_path / "stop.npz")
+    fit(sc, target, steps=3, checkpoint_path=ck, **kw)
+    _, p_res, h_res = fit(sc, target, steps=6, checkpoint_path=ck, **kw)
+    assert [h["step"] for h in h_res] == [3, 4, 5]
+    assert [h["loss"] for h in h_res] == [h["loss"] for h in h_full[3:]]
+    for k in p_full:
+        assert p_res[k].is_cuda and torch.equal(p_res[k], p_full[k]), k

@@ -4,7 +4,8 @@ A fresh interpreter refuses every import of ``jax``, ``jaxlib`` and the JAX
 package ``tputracer``, then imports tputracer_torch, builds the Cornell
 boxes scene and renders it on the CPU, renders the caustics scene with BDPT,
 single shot and progressive, then builds a clustered mesh scene
-(with the native BVH builder and with the NumPy one) and renders that.
+(with the native BVH builder and with the NumPy one) and renders that,
+then takes gradients with grad_render and runs a two-step fit.
 """
 
 import os
@@ -71,6 +72,21 @@ img, stats = render(mesh, RenderConfig(width=8, height=8, spp=1),
                     device="cpu")
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 assert float(img.mean()) > 0.0
+
+# gradients and a two-step fit
+from tputracer_torch import grad_render
+from tputracer_torch.fit import fit
+
+boxes = cornell_box("boxes", device="cpu")
+gcfg = RenderConfig(width=8, height=8, spp=1, max_bounces=2, remat=True)
+target, _ = render(boxes, gcfg)
+start = {"mat_albedo": boxes.mat_albedo * 0.5}
+loss, grads = grad_render(boxes, start, target, gcfg)
+assert float(loss) > 0.0 and bool(torch.isfinite(grads["mat_albedo"]).all())
+_, params, history = fit(boxes, target, cfg=gcfg, steps=2, init=start,
+                         log_every=0)
+assert [h["step"] for h in history] == [0, 1]
+assert not torch.equal(params["mat_albedo"], start["mat_albedo"])
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", float(img.mean()))

@@ -1,9 +1,11 @@
 """Public API: ``render`` (wavefront path tracer), ``render_bdpt``
-(bidirectional path tracer) and their progressive forms with film
-checkpoints, ``render_progressive`` and ``render_bdpt_progressive``."""
+(bidirectional path tracer), their progressive forms with film
+checkpoints, ``render_progressive`` and ``render_bdpt_progressive``, and
+``grad_render`` (a pixel loss and its gradients)."""
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 
@@ -177,3 +179,44 @@ def render_bdpt_progressive(scene, cfg: BdptConfig, spp_per_pass=4,
     return _progressive_loop(
         scene, cfg, lambda off, step: _bdpt_pass(scene, cfg, off, step),
         spp_per_pass, checkpoint_path, resume, callback)
+
+
+def _loss_l2(img, target):
+    return torch.mean((img - target) ** 2)
+
+
+def _loss_and_grads(render_fn, scene, params, target, cfg):
+    """(loss, grads) of the mean squared pixel error of
+    ``render_fn(scene with params, cfg)`` against target: a detached 0-d
+    tensor and a dict with the keys of ``params``, whose leaf tensors
+    require grad."""
+    img, _ = render_fn(dataclasses.replace(scene, **params), cfg)
+    loss = _loss_l2(img, target)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def grad_render(scene, params, target, cfg: RenderConfig | None = None,
+                **kw):
+    """Pixel-loss value and gradients with respect to material and light
+    parameter tables.
+
+    params: dict of Scene field overrides to differentiate, e.g.
+      {"mat_albedo": ..., "mat_emission": ...}   (BASELINE config 5);
+      tensors or arrays, each detached and copied before use.
+    target: (H,W,3) target image (row 0 = top).
+    Returns (loss, grads): the mean squared pixel error, a 0-d tensor, and
+    a dict with the keys of ``params``, both on the scene's device.
+
+    Gradients flow through the shading math only (detached sampling):
+    sampled directions and discrete choices are constants.  Keyword
+    arguments override ``cfg``, as in :func:`render`.
+    """
+    from tputracer_torch.integrators.pt import render_pt
+
+    cfg = _with(cfg, RenderConfig, kw)
+    dev = scene.device
+    p = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+         .detach().clone().requires_grad_() for k, v in params.items()}
+    target = torch.as_tensor(target, dtype=torch.float32, device=dev)
+    return _loss_and_grads(render_pt, scene, p, target, cfg)

@@ -18,7 +18,10 @@ chunking.  Statistics stay on the device; nothing here synchronizes.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tputracer_torch import geometry as g
 from tputracer_torch import rng
@@ -177,15 +180,21 @@ def trace_radiance(scene, uid, cfg, decision_scene=None,
     wavefront is permuted after each bounce but the last two by a stable
     argsort of _coherence_key, and L is put back in uid order at the end.
     The RNG is keyed on uid and every step is per lane, so the image has
-    the bits of the unsorted render.  cfg.remat is accepted and changes
-    nothing in this forward pass; its per-bounce torch.utils.checkpoint
-    comes with gradients."""
+    the bits of the unsorted render.
+
+    With cfg.remat and gradients on, each bounce runs under a
+    non-reentrant torch.utils.checkpoint: the backward pass recomputes the
+    bounce, its intersection calls included, in place of keeping its
+    intermediates.  The forward pass computes the same values.  The
+    parameters live inside ``scene``, not in the positional tensors, and
+    only the non-reentrant form passes gradients to them."""
     n = uid.shape[0]
     dev = uid.device
     isect = intersect if intersect_fn is None else intersect_fn
     occl = occluded if occluded_fn is None else occluded_fn
     o, d = camera_rays(scene, uid, cfg)
     do_sort = cfg.sort_rays and scene.n_clusters > 0
+    remat = cfg.remat and torch.is_grad_enabled()
 
     carry = (
         o, d,
@@ -199,9 +208,19 @@ def trace_radiance(scene, uid, cfg, decision_scene=None,
     issued_counts = []                    # closest-hit rays actually traced
     shadow_counts = []                    # shadow rays actually traced
     for b in range(cfg.max_bounces + 1):
-        carry, (issued, n_active, n_shadow) = _bounce_step(
-            scene, decision_scene, uid, carry, b=b, cfg=cfg,
-            isect=isect, occl=occl)
+        step = functools.partial(_bounce_step, b=b, cfg=cfg, isect=isect,
+                                 occl=occl)
+        if remat:
+            # scene, decision_scene and uid are explicit arguments, as in
+            # the reference, so the recomputation reads them and not
+            # closure state; the bounce draws from the counter-based RNG,
+            # so torch's RNG state needs no saving
+            carry, (issued, n_active, n_shadow) = checkpoint(
+                step, scene, decision_scene, uid, carry,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            carry, (issued, n_active, n_shadow) = step(
+                scene, decision_scene, uid, carry)
         issued_counts.append(issued)
         alive_counts.append(n_active)
         if n_shadow is not None:
