@@ -30,6 +30,27 @@ intersection kernel's path):
     ``python3 -c "import chip_profile as c; c.fit_config5()"`` runs it
     alone.
 
+Config 3 tiled over two ranks that share the card (gloo), the geometry
+split and the rays going round the ring (tputracer_torch.dist):
+
+  * dist_profile: ``python3 -c "import chip_profile as c;
+    c.dist_config3()"`` runs it (alone; main() does not).  Each rank
+    renders config 3 through dist.render_tiled (the scene built on the
+    host, its half of the clusters on the card) after a warm-up: the
+    untraced render (median of 3, each from a barrier to a synchronize),
+    then one render with rank 0 under torch.profiler: kernels, busy
+    time, idle share, the traversal kernel's device time and share, the
+    host's time in the hops (the ``ring_hop`` spans: pack, the copy to
+    the host, gloo's send and receive, the copy back) and the copies'
+    device time.
+  * dist_profile of config 5: ``python3 -c "import chip_profile as c;
+    c.dist_fit5()"``, a DP fit step (dist.fit_chain_sharded) in worlds
+    of 1 and 2 gloo ranks on the card, rank 0 traced: the untraced step,
+    kernels, busy time, idle share, the lookups' backward.
+  * first_step: ``python3 -c "import chip_profile as c;
+    c.first_step_costs()"`` (in a fresh process), a process's first Adam
+    step on the card against its second.
+
 Config 3, on the 102,410-triangle mesh of BASELINE config 3
 (mesh_scene(subdiv=6)) and 2^16 random rays from inside its room
 (chip_smoke.room_rays):
@@ -119,12 +140,18 @@ from chip_smoke import (MESH_CFG, N_CHUNK, N_RAYS, card_line, cuda_ms,
                         mesh_camera_rays, room_rays)
 
 
+# record_function spans of the port, which the trace also shows on the
+# card's timeline; they are not kernels
+ANNOTATIONS = ("ring_hop",)
+
+
 def busy(prof, kernel="traverse_kernel"):
     """(kernels, busy ms, span ms, top kernels by device ms, device ms of
     the kernels whose name holds ``kernel``) of a trace."""
     ks = sorted((e.time_range.start, e.time_range.end, e.name)
                 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name not in ANNOTATIONS)
     total, end = 0.0, None
     by_name = {}
     for s, e, name in ks:
@@ -748,6 +775,170 @@ def lookup_backward_costs():
                 "bound_ms": (n * 16 + M * 12) / PEAK_BYTES * 1e3,
                 "rows_hit": torch.bincount(idx.long(), minlength=M).tolist()}),
                 flush=True)
+
+
+def rank_dist_config3(mesh, refs):
+    """One rank of dist_config3 (chip_smoke.run_world's task)."""
+    import torch.distributed as dist
+
+    from chip_smoke import _barrier_s
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.dist import render_tiled
+    from tputracer_torch.scene import mesh_scene
+
+    scene = mesh_scene(subdiv=6, device="cpu")
+    cfg = RenderConfig(**MESH_CFG)
+
+    def run():
+        render_tiled(scene, cfg, mesh, device="cuda")
+
+    run()   # warm-up
+    walls = _barrier_s(run, 3)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    dist.barrier()
+    if mesh.rank != 0:
+        run()
+        torch.cuda.synchronize()
+        return {"rank": mesh.rank, "untraced_render_s_all": walls}
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    n, busy_ms, span_ms, top, walk_ms = busy(prof)
+    hops = [e for e in prof.events() if e.name == "ring_hop"
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    copies = sum((e.time_range.end - e.time_range.start) / 1e3
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "Memcpy" in e.name)
+    wall = statistics.median(walls) * 1e3
+    return {"rank": 0, "untraced_render_ms": wall,
+            "untraced_render_s_all": walls, "kernels": n,
+            "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall,
+            "traverse_ms": walk_ms, "traverse_share": walk_ms / busy_ms,
+            "hops": len(hops),
+            "hop_host_ms": sum((e.time_range.end - e.time_range.start) / 1e3
+                               for e in hops),
+            "copy_device_ms": copies, "traced_span_ms": span_ms, "top": top}
+
+
+def rank_dist_fit5(mesh, refs):
+    """One rank of dist_fit5 (chip_smoke.run_world's task)."""
+    import torch.distributed as dist
+
+    from chip_smoke import FIT_CFG, FIT_K, FIT_LR, _barrier_s, fit_start
+    from tputracer_torch import fit as tfit
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.dist import fit_chain_sharded, fit_step_sharded
+    from tputracer_torch.integrators.pt import render_pt
+    from tputracer_torch.scene import cornell_box
+
+    sc = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(**FIT_CFG)
+    with torch.no_grad():
+        target, _ = render_pt(sc, cfg)
+    p = {k: v.detach().clone().requires_grad_()
+         for k, v in fit_start(sc).items()}
+    opt = tfit._adam(list(p.values()), FIT_LR)
+
+    def step():
+        fit_chain_sharded(sc, p, target, cfg, mesh, opt, 1)
+
+    # phase 15's order: one step without the optimizer, then fit(mesh=)
+    # twice, FIT_K steps in one chain each
+    fit_step_sharded(sc, fit_start(sc), target, cfg, mesh)
+    fit_s = _barrier_s(lambda: tfit.fit(
+        sc, target, cfg=cfg, steps=FIT_K, learning_rate=FIT_LR,
+        init=fit_start(sc), log_every=0, steps_per_dispatch=FIT_K,
+        mesh=mesh), 2)
+    step()   # warm-up
+    walls = _barrier_s(step, 5)
+    dist.barrier()
+    if mesh.rank != 0:
+        step()
+        torch.cuda.synchronize()
+        return {"rank": mesh.rank, "untraced_step_s_all": walls,
+                "fit_steps_per_s": [FIT_K / s for s in fit_s]}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    n, busy_ms, span_ms, top, b1_ms = busy(prof, "fused_intersect")
+    ops = op_device_ms(prof)
+    wall = statistics.median(walls) * 1e3
+    return {"rank": 0, "untraced_step_ms": wall,
+            "untraced_step_s_all": walls,
+            "fit_steps_per_s": [FIT_K / s for s in fit_s],
+            "kernels": n, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall, "intersect_ms": b1_ms,
+            "lookup_backward_ms": sum(t for k, _, t, _ in ops
+                                      if k == LOOKUP_BACKWARD),
+            "lookup_backward_calls": sum(c for k, c, _, _ in ops
+                                         if k == LOOKUP_BACKWARD),
+            "traced_span_ms": span_ms, "top": top,
+            "top_ops": [(k[:50], c, round(t, 4), round(o, 4)) for k, c, t, o
+                        in sorted(ops, key=lambda r: -r[3])[:8]]}
+
+
+def dist_fit5():
+    """Config 5's DP fit step (dist.fit_chain_sharded, one step) in gloo
+    worlds of 1 and 2 ranks on the card, rank 0 traced: a dist_profile
+    line each (steps/s of two fit(mesh=) calls of FIT_K steps in one
+    chain after one fit_step_sharded, as phase 15 calls them; an untraced
+    step from a barrier to a synchronize, median of 5 after a warm-up;
+    one step traced: kernels, busy, idle, the lookups' backward)."""
+    import tempfile
+
+    from chip_smoke import run_world
+
+    for world in (1, 2):
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = run_world("chip_profile.rank_dist_fit5", world, tmp,
+                              "gloo")
+        print(json.dumps({"phase": "dist_profile", "config": 5,
+                          "ranks": world, "backend": "gloo, one card",
+                          **ranks[0]}), flush=True)
+
+
+def first_step_costs():
+    """A process's first optimizer step on the card against its second:
+    run in a fresh process (``python3 -c "import chip_profile as c;
+    c.first_step_costs()"``), it prints whether ``torch._dynamo`` was
+    loaded before the first step and after it, and the seconds of each
+    of two Adam steps (chip_smoke's fit optimizer) on a CUDA tensor,
+    each ended by a synchronize."""
+    from tputracer_torch import fit as tfit
+
+    p = torch.zeros(3, device="cuda", requires_grad=True)
+    opt = tfit._adam([p], 1e-2)
+    torch.cuda.synchronize()
+    before = "torch._dynamo" in sys.modules
+    secs = []
+    for _ in range(2):
+        p.grad = torch.ones_like(p)
+        t0 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    print(json.dumps({"phase": "first_step", "dynamo_loaded_before": before,
+                      "dynamo_loaded_after": "torch._dynamo" in sys.modules,
+                      "adam_step_s": secs}), flush=True)
+
+
+def dist_config3():
+    """Config 3 tiled over two gloo ranks sharing the card, rank 0 traced:
+    a dist_profile line (see the module's docstring)."""
+    import tempfile
+
+    from chip_smoke import run_world
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_world("chip_profile.rank_dist_config3", 2, tmp, "gloo")
+    print(json.dumps({"phase": "dist_profile", "config": 3, "ranks": 2,
+                      "backend": "gloo, one card", **ranks[0],
+                      "rank1_untraced_render_s_all":
+                          ranks[1]["untraced_render_s_all"]}), flush=True)
 
 
 def main():

@@ -104,6 +104,28 @@ Run from the root of a checkout.  Phases, each printing one line:
      traversal kernel (7 launches, finite gradients); grad_render at
      256x256 16 spp 4 bounces in one chunk of 2^20 paths without and with
      remat, whose peak memory must be lower.
+ 15. dist: tputracer_torch.dist.  A world of one on NCCL in this process:
+     render_sharded of config 1 (phase 4's bits, 36 intersection
+     launches) and render_tiled of config 3 (phase 7's bits and ray
+     counts, 68 traversal launches, no ring bytes).  Then worlds whose
+     ranks are fresh interpreters (never a fork of this process, which
+     holds a CUDA context) sharing the card over gloo, each killed after
+     DIST_TIMEOUT_S; every rank checks itself against this process's
+     references and any failure fails the phase.  P = 2: config 1 DP
+     (phase 4's bits, 18 launches a rank); config 3 tiled (68 traversal
+     launches a rank, ring_bytes' count, phase 7's image within rtol 2e-5
+     and its ray counts; timed, once with each hop timed; the traversal
+     kernel on the recorded second hops of a chunk's bounce-1 calls bit
+     for bit against the clustered walk); config 4 DP (50 launches a
+     rank, L_own bit for bit, the image within rtol 1e-4 of phase 12's)
+     and the BDPT ring (35 launches a rank, within rtol 1e-4 of the
+     emulation); config 5's DP step (7 launches, the single card's loss
+     and gradients within 1e-5), a fit(mesh=) whose loss falls (timed on
+     its second call) and a BDPT DP step at 64x64.  With two cards also
+     P = 2 on NCCL, a card a rank, and the scaling efficiency.  Then the
+     capacity scene (mesh_scene(subdiv=8, leaf_size=128), more clusters
+     than one traversal launch stages, which must refuse it) tiled over
+     P = 4 ranks from a host build, against the plain walk on the card.
 
 A kernel's ``ms`` times one call alone between CUDA events, the wrapper's
 host work included (cuda_ms: the median of 5 after 2 warm-ups);
@@ -125,6 +147,7 @@ import json
 import os
 import statistics
 import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -595,7 +618,7 @@ def phase_render():
          issued_rays=issued, issued_rays_per_s=issued / render_s,
          plain_render_s=plain_render_s, plain_render_s_all=plain_s,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches
+    return launches, img.cpu().numpy()
 
 
 def golden_compare(name, img, ref):
@@ -985,7 +1008,8 @@ def phase_mesh_render(mesh):
          flat_rays_per_s=flat / render_s, issued_rays=issued,
          issued_rays_per_s=issued / render_s,
          plain_render_s_once=plain_s, peak_mem_gb=peak_gb)
-    return launches, img.cpu().numpy()
+    return launches, img.cpu().numpy(), {k: v.cpu().numpy()
+                                         for k, v in stats.items()}
 
 
 def phase_mesh_parity():
@@ -1908,6 +1932,534 @@ def phase_fit():
             launches_remat["fused_intersect"] / FIT_K)
 
 
+# ---- phase 15: distribution -------------------------------------------------
+
+# a spawned world's ranks are killed when it has run this long; the same
+# bounds every collective in it
+DIST_TIMEOUT_S = 300
+# the JAX capacity test's scene (tests/distributed/test_tiling_capacity.py):
+# mesh_scene(subdiv=8, leaf_size=128), 1,638,410 triangles, more clusters
+# than the traversal kernel stages in one block
+CAP_SCENE = dict(subdiv=8, leaf_size=128)
+CAP_CFG = dict(width=64, height=64, spp=1, max_bounces=2)
+# DP fits: config 5, and the BDPT fit at 64x64
+FIT_BDPT_CFG = dict(width=64, height=64, spp=4, max_bounces=3)
+
+
+def ring_bytes(cfg, n_shards):
+    """ring_ppermute_bytes_per_device of a tiled PT render: each call
+    sends its carry once a hop, P hops, 56 bytes a ray for a closest hit
+    and 32 for a shadow ray, every lane of every chunk."""
+    n_loc = cfg.width * cfg.height * cfg.spp // n_shards
+    chunk = min(cfg.chunk_size, n_loc)
+    calls = (cfg.max_bounces + 1) * 56 + cfg.max_bounces * 32
+    return (n_loc // chunk) * calls * chunk * (n_shards if n_shards > 1
+                                               else 0)
+
+
+def run_world(task, world, tmp, backend):
+    """Run ``world`` ranks of dist_rank(task) on this card (fresh
+    interpreters, never a fork of this process) and return their result
+    dicts.  task: "module.function" of a function (mesh, refs) -> a JSON
+    dict, refs what ``tmp``/<task>-refs.npz holds (if it exists).  A
+    rank that fails fails the phase; ranks still running after
+    DIST_TIMEOUT_S are killed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    init = f"file://{tmp}/{task}-{backend}-rendezvous"
+    procs = []
+    for r in range(world):
+        code = (f"import chip_smoke; chip_smoke.dist_rank({task!r}, {world},"
+                f" {r}, {init!r}, {tmp!r}, {backend!r})")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    fails = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                _, err = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                _, err = p.communicate()
+                err += f"\nkilled after {DIST_TIMEOUT_S} s"
+            if p.returncode != 0:
+                fails.append(f"rank {r} (exit {p.returncode}): {err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    check(not fails, f"{task} world of {world} on {backend} failed:\n"
+                     + "\n".join(fails))
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{task}-{backend}-rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def dist_rank(task, world, rank, init, tmp, backend):
+    """One rank of a world of run_world: joins it, runs ``task`` against
+    the references the parent saved in ``tmp``, writes its results as
+    JSON.  Any failed check raises, and the process exits non-zero."""
+    import importlib
+
+    from tputracer_torch.dist import launch, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    module, fn = task.rsplit(".", 1)
+    fn = getattr(importlib.import_module(module), fn)
+    refs = {}
+    path = os.path.join(tmp, f"{task}-refs.npz")
+    if os.path.exists(path):
+        with np.load(path) as z:
+            refs = dict(z)
+    launch.initialize(init, world, rank, backend=backend,
+                      timeout_s=DIST_TIMEOUT_S)
+    try:
+        res = fn(make_mesh(), refs)
+    finally:
+        launch.shutdown()
+    with open(os.path.join(tmp, f"{task}-{backend}-rank{rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+
+
+def _barrier_s(fn, reps):
+    """Seconds of each of ``reps`` calls of fn on every rank, each from a
+    barrier to the card's synchronize after it."""
+    import torch.distributed as dist
+
+    out = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def record_hops(mesh, tile, cfg):
+    """Trace the first chunk of this rank's rows through the ring, with
+    the traversal kernel's wrapper recording each hop's inputs; returns
+    the recorded calls (each the args of traverse and its any_hit)."""
+    from tputracer_torch.accel import traverse_cuda as tc
+    from tputracer_torch.dist.mesh import shard_uids
+    from tputracer_torch.dist.scene_shard import make_ring_backends
+    from tputracer_torch.integrators.pt import trace_radiance
+
+    calls = []
+    walk = tc.traverse
+
+    def recording(*args, leaf, any_hit=False):
+        calls.append((tuple(a.clone() for a in args[:6]), args[6:], leaf,
+                      any_hit))
+        return walk(*args, leaf=leaf, any_hit=any_hit)
+
+    isect, occl = make_ring_backends(mesh)
+    tc.traverse = recording
+    try:
+        trace_radiance(tile, shard_uids(cfg, mesh, "cuda")[:cfg.chunk_size],
+                       cfg, intersect_fn=isect, occluded_fn=occl)
+    finally:
+        tc.traverse = walk
+    return calls
+
+
+def hold_hop(call):
+    """The traversal kernel on one recorded hop against the clustered
+    walk on the same inputs: t and prim bit for bit (any hit: the
+    occlusion verdicts)."""
+    from tputracer_torch.accel import traverse_cuda as tc
+    from tputracer_torch.accel.clustered import _traverse
+
+    rays, tables, leaf, any_hit = call
+    t_k, p_k = tc.traverse_cuda(*rays, *tables, leaf=leaf, any_hit=any_hit)
+    t_p, p_p = _traverse(*rays, *tables, leaf=leaf, any_hit=any_hit)
+    torch.cuda.synchronize()
+    tmax, bt0 = rays[3], rays[4]
+    live = tmax > rays[2]
+    if any_hit:
+        ok = torch.equal(t_k < tmax, t_p < tmax)
+    else:
+        ok = torch.equal(t_k, t_p) and torch.equal(p_k, p_p)
+    return {"any_hit": any_hit, "rays": len(tmax),
+            "live": int(live.sum()),
+            "carried": int((live & (bt0 < tmax)).sum()),
+            "improved": int((p_k >= 0).sum()), "bitwise": bool(ok)}
+
+
+def rank_p2(mesh, refs):
+    """Configs 1 (DP), 3 (tiled, and the traversal kernel on a hop), 4
+    (DP BDPT and the BDPT ring) and 5 (DP fits) on this rank."""
+    import torch.distributed as dist
+
+    from tputracer_torch import fit as tfit
+    from tputracer_torch.config import BdptConfig, RenderConfig
+    from tputracer_torch.dist import (fit_step_bdpt_sharded, fit_step_sharded,
+                                      render_bdpt_ring, render_bdpt_sharded,
+                                      render_sharded, render_tiled)
+    from tputracer_torch.dist.mesh import shard_uids
+    from tputracer_torch.dist.scene_shard import (_tile, geometry_bytes,
+                                                  make_ring_backends)
+    from tputracer_torch.integrators.bdpt import trace_bdpt_rows
+    from tputracer_torch.integrators.pt import trace_chunked
+    from tputracer_torch.scene import cornell_box, mesh_scene
+
+    P, rank = mesh.size, mesh.rank
+    none = dict(fused_intersect=0, traverse=0, pair_expand=0, pair_test=0)
+    res = {"rank": rank, "world": P}
+
+    # config 1, DP
+    boxes = cornell_box("boxes", device="cuda")
+    cfg1 = RenderConfig(width=512, height=512, spp=16, max_bounces=4)
+    per_rank = -(-cfg1.width * cfg1.height * cfg1.spp // P
+                 // cfg1.chunk_size) * (2 * cfg1.max_bounces + 1)
+    (img, _), launches = counted(lambda: render_sharded(boxes, cfg1, mesh),
+                                 dict(none, fused_intersect=per_rank),
+                                 "config-1 DP render")
+    check(np.array_equal(img.cpu().numpy(), refs["config1"]),
+          "config-1 DP render: not the single card's bits")
+    secs = _barrier_s(lambda: render_sharded(boxes, cfg1, mesh), 3)
+    res["config1"] = {"launches": launches, "bitwise": True,
+                      "render_s": statistics.median(secs),
+                      "render_s_all": secs}
+
+    # config 3, geometry tiled: the scene built on the host, its tile sent
+    mesh_host = mesh_scene(subdiv=6, device="cpu")
+    cfg3 = RenderConfig(**MESH_CFG)
+    per_rank = (cfg3.width * cfg3.height * cfg3.spp // P // cfg3.chunk_size
+                * (2 * cfg3.max_bounces + 1) * P)
+    (img, stats), launches = counted(
+        lambda: render_tiled(mesh_host, cfg3, mesh, device="cuda"),
+        dict(none, traverse=per_rank), "config-3 tiled render")
+    img = img.cpu().numpy()
+    for k in ("rays_closest", "rays_shadow"):
+        check(np.array_equal(stats[k].cpu().numpy(), refs[f"config3_{k}"]),
+              f"config-3 tiled render: {k} differ from the single card's")
+    sent = float(stats["ring_ppermute_bytes_per_device"])
+    check(sent == ring_bytes(cfg3, P),
+          f"config-3 tiled: {sent} ring bytes, want {ring_bytes(cfg3, P)}")
+    err = np.abs(img - refs["config3"])
+    check(bool((err <= 2e-6 + 2e-5 * np.abs(refs["config3"])).all()),
+          f"config-3 tiled render: max abs err {err.max()}")
+    secs = _barrier_s(lambda: render_tiled(mesh_host, cfg3, mesh,
+                                           device="cuda"), 3)
+    # once more with each hop timed between synchronizes
+    tile = _tile(mesh_host, mesh, "cuda")
+    hops = []
+    isect, occl = make_ring_backends(mesh, hop_log=hops)
+    uids = shard_uids(cfg3, mesh, "cuda")
+    hop_secs = _barrier_s(lambda: trace_chunked(tile, uids, cfg3,
+                                                intersect_fn=isect,
+                                                occluded_fn=occl), 1)
+    calls = record_hops(mesh, tile, cfg3)
+    check(len(calls) == (2 * cfg3.max_bounces + 1) * P,
+          f"recorded {len(calls)} hops")
+    # the second hop of bounce 1's closest-hit and shadow calls: rays of
+    # the other rank, carrying its best hit into this rank's clusters
+    hop = [hold_hop(calls[2 * P + 1]), hold_hop(calls[3 * P + 1])]
+    check(all(h["bitwise"] for h in hop), f"kernel on a ring hop: {hop}")
+    res["config3"] = {
+        "launches": launches, "max_abs_err": float(err.max()),
+        "bitwise": bool((err == 0).all()), "ring_bytes": sent,
+        "tile_clusters": tile.n_clusters,
+        "tile_geometry_bytes": geometry_bytes(tile),
+        "render_s": statistics.median(secs), "render_s_all": secs,
+        "render_s_hops_timed": hop_secs[0], "hop_s": sum(hops),
+        "hops": len(hops), "hop_s_median": statistics.median(hops),
+        "kernel_on_hop": hop}
+
+    # config 4, BDPT: DP, then the ring
+    caustic = cornell_box("caustic", device="cuda")
+    cfg4 = BdptConfig(**BDPT_CFG)
+    n_loc = cfg4.width * cfg4.height * cfg4.spp // P
+    per_rank = n_loc // cfg4.chunk_size * bdpt_launches(cfg4.max_bounces)
+    img, launches = counted(lambda: render_bdpt_sharded(caustic, cfg4, mesh),
+                            dict(none, fused_intersect=per_rank),
+                            "config-4 DP BDPT render")
+    img = img.cpu().numpy()
+    rel = float(np.max(np.abs(img - refs["config4"])
+                       / (1e-6 + np.abs(refs["config4"]))))
+    check(np.allclose(img, refs["config4"], rtol=1e-4, atol=1e-6),
+          f"config-4 DP BDPT: rel err {rel}")
+    L_own, _, _ = trace_bdpt_rows(caustic, shard_uids(cfg4, mesh, "cuda"),
+                                  cfg4)
+    check(np.array_equal(L_own.cpu().numpy(),
+                         refs["config4_L_own"][rank * n_loc:
+                                               (rank + 1) * n_loc]),
+          "config-4 DP BDPT: L_own is not the single card's")
+    secs = _barrier_s(lambda: render_bdpt_sharded(caustic, cfg4, mesh), 3)
+    b = cfg4.max_bounces
+    ring_want = 2 * (b + 1) + (b + 1) + P * b * (b + 1) // 2
+    ring, ring_launches = counted(
+        lambda: render_bdpt_ring(caustic, cfg4, mesh),
+        dict(none, fused_intersect=ring_want), "config-4 BDPT ring")
+    ring = ring.cpu().numpy()
+    check(np.allclose(ring, refs["config4_ring"], rtol=1e-4, atol=1e-6),
+          "config-4 BDPT ring: not the emulation's image")
+    ring_secs = _barrier_s(lambda: render_bdpt_ring(caustic, cfg4, mesh), 1)
+    res["config4"] = {"launches": launches, "L_own_bitwise": True,
+                      "max_rel_err": rel, "render_s": statistics.median(secs),
+                      "render_s_all": secs, "ring_launches": ring_launches,
+                      "ring_max_abs_err": float(np.abs(
+                          ring - refs["config4_ring"]).max()),
+                      "ring_render_s": ring_secs[0]}
+
+    # config 5, DP fits
+    cfg5 = RenderConfig(**FIT_CFG)
+    target = torch.from_numpy(refs["config5_target"]).cuda()
+    init = fit_start(boxes)
+    (loss, grads), launches = counted(
+        lambda: fit_step_sharded(boxes, init, target, cfg5, mesh),
+        dict(none, fused_intersect=2 * cfg5.max_bounces + 1),
+        "config-5 DP fit step")
+    ref_g = {k: torch.from_numpy(refs[f"config5_grad_{k}"]) for k in init}
+    g_err = grads_rel_err(grads, ref_g)
+    l_err = abs(float(loss) / float(refs["config5_loss"]) - 1.0)
+    check(g_err < 1e-5 and l_err < 1e-5,
+          f"config-5 DP step: loss {l_err}, gradients {g_err} (rel)")
+    def dp_fit():
+        return tfit.fit(boxes, target, cfg=cfg5, steps=FIT_K,
+                        learning_rate=FIT_LR, init=init, log_every=0,
+                        steps_per_dispatch=FIT_K, mesh=mesh)
+
+    dist.barrier()
+    t0 = time.perf_counter()
+    (_, _, hist), fit_launches = counted(
+        dp_fit, dict(none, fused_intersect=FIT_K * (2 * cfg5.max_bounces + 1)),
+        "config-5 DP fit")
+    first_fit_s = time.perf_counter() - t0
+    # timed on a second call: here a rank's first call has taken ~8.7 s
+    # for 8 steps on an H100 and its second ~1.3 s (PERF.md section 7)
+    fit_s = _barrier_s(dp_fit, 1)[0]
+    losses = [h["loss"] for h in hist]
+    check(losses[-1] < losses[0], f"config-5 DP fit losses {losses}")
+    bcfg = BdptConfig(**FIT_BDPT_CFG)
+    b_target = torch.from_numpy(refs["bdpt_fit_target"]).cuda()
+    b_loss, b_grads = fit_step_bdpt_sharded(boxes, init, b_target, bcfg, mesh)
+    ref_b = {k: torch.from_numpy(refs[f"bdpt_fit_grad_{k}"]) for k in init}
+    b_err = grads_rel_err(b_grads, ref_b)
+    b_l_err = abs(float(b_loss) / float(refs["bdpt_fit_loss"]) - 1.0)
+    check(b_err < 1e-5 and b_l_err < 1e-5,
+          f"DP BDPT fit step: loss {b_l_err}, gradients {b_err} (rel)")
+    res["config5"] = {"launches_step": launches, "loss_rel_err": l_err,
+                      "grads_rel_err": g_err, "losses": losses,
+                      "fit_launches": fit_launches,
+                      "first_fit_s": first_fit_s,
+                      "steps_per_s": FIT_K / fit_s,
+                      "bdpt_loss_rel_err": b_l_err,
+                      "bdpt_grads_rel_err": b_err}
+    return res
+
+
+def rank_capacity(mesh, refs):
+    """The capacity scene, built on the host, its tile on the card,
+    rendered through the ring."""
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.dist import render_tiled
+    from tputracer_torch.dist.scene_shard import (_tile, geometry_bytes,
+                                                  pad_scene_clusters)
+    from tputracer_torch.scene import mesh_scene
+
+    t0 = time.perf_counter()
+    scene = mesh_scene(device="cpu", **CAP_SCENE)
+    build_s = time.perf_counter() - t0
+    cfg = RenderConfig(**CAP_CFG)
+    tile = _tile(scene, mesh, "cuda")
+    whole = geometry_bytes(pad_scene_clusters(scene, mesh.size))
+    check(geometry_bytes(tile) * mesh.size <= whole,
+          "a tile holds more than its share of the geometry")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    img, stats = render_tiled(scene, cfg, mesh, device="cuda")
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches = launch_counts()
+    calls = 2 * cfg.max_bounces + 1
+    check(launches["traverse"] == calls * mesh.size
+          and launches["fused_intersect"] == 0,
+          f"capacity render launched {launches}")
+    img = img.cpu().numpy()
+    err = np.abs(img - refs["image"])
+    check(bool((err <= 2e-6 + 2e-5 * np.abs(refs["image"])).all()),
+          f"capacity render: max abs err {err.max()} against the plain walk")
+    return {"rank": mesh.rank, "build_s": build_s,
+            "tile_clusters": tile.n_clusters,
+            "tile_geometry_bytes": geometry_bytes(tile),
+            "whole_geometry_bytes": whole, "launches": launches,
+            "render_s_once": render_s, "max_abs_err": float(err.max()),
+            "ring_bytes": float(stats["ring_ppermute_bytes_per_device"]),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_dist(c1_img, c3_img, c3_stats, c4_img):
+    """Phase 15: the world of one on NCCL in this process; then worlds of
+    2 ranks on gloo sharing the card (and on NCCL, a card a rank, where
+    there are 2 cards); then the capacity scene at 4 ranks."""
+    import tempfile
+
+    from tputracer_torch.accel import intersect_clustered, occluded_clustered
+    from tputracer_torch.accel import traverse_cuda as tc
+    from tputracer_torch.accel.clustered import traverse_args
+    from tputracer_torch.api import _loss_and_grads, grad_render
+    from tputracer_torch.config import BdptConfig, RenderConfig
+    from tputracer_torch.dist import (launch, make_mesh, render_sharded,
+                                      render_tiled)
+    from tputracer_torch.dist.bdpt_ring import emulate_ring_bdpt
+    from tputracer_torch.integrators.bdpt import render_bdpt, trace_bdpt_rows
+    from tputracer_torch.integrators.pt import film_from_radiance, render_pt
+    from tputracer_torch.scene import cornell_box, mesh_scene
+
+    none = dict(fused_intersect=0, traverse=0, pair_expand=0, pair_test=0)
+    boxes = cornell_box("boxes", device="cuda")
+    caustic = cornell_box("caustic", device="cuda")
+    cfg1 = RenderConfig(width=512, height=512, spp=16, max_bounces=4)
+    cfg3 = RenderConfig(**MESH_CFG)
+    cfg4 = BdptConfig(**BDPT_CFG)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # a world of one on NCCL, in this process
+        launch.initialize(f"file://{tmp}/one", 1, 0, backend="nccl")
+        try:
+            mesh1 = make_mesh()
+            (img, _), l1 = counted(lambda: render_sharded(boxes, cfg1, mesh1),
+                                   dict(none, fused_intersect=36),
+                                   "NCCL world of one, config 1")
+            check(np.array_equal(img.cpu().numpy(), c1_img),
+                  "NCCL world of one, config 1: not phase 4's bits")
+            mesh_host = mesh_scene(subdiv=6, device="cpu")
+            (img, stats), l3 = counted(
+                lambda: render_tiled(mesh_host, cfg3, mesh1, device="cuda"),
+                dict(none, traverse=68), "NCCL world of one, config 3 tiled")
+            img = img.cpu().numpy()
+            for k in ("rays_closest", "rays_shadow"):
+                check(np.array_equal(stats[k].cpu().numpy(), c3_stats[k]),
+                      f"NCCL world of one, config 3: {k} not phase 7's")
+            check(float(stats["ring_ppermute_bytes_per_device"]) == 0.0,
+                  "a world of one sent ring bytes")
+            # one tile is the whole scene: the ring's hits, normalized as
+            # finalize_hit does, are the replicated walk's bit for bit
+            check(np.array_equal(img, c3_img),
+                  "NCCL world of one, config 3 tiled: not phase 7's bits")
+            out["one_nccl"] = {"config1_launches": l1, "config1_bitwise": True,
+                               "config3_launches": l3,
+                               "config3_bitwise": True}
+        finally:
+            launch.shutdown()
+
+        # the single card's references of the 2-rank worlds
+        cfg5 = RenderConfig(**FIT_CFG)
+        with torch.no_grad():
+            target5, _ = render_pt(boxes, cfg5)
+        loss5, g5 = grad_render(boxes, fit_start(boxes), target5, cfg5)
+        bcfg = BdptConfig(**FIT_BDPT_CFG)
+        with torch.no_grad():
+            b_target, _ = render_bdpt(boxes, bcfg)
+        p = {k: v.detach().clone().requires_grad_()
+             for k, v in fit_start(boxes).items()}
+        b_loss, b_g = _loss_and_grads(render_bdpt, boxes, p, b_target, bcfg)
+        n4 = cfg4.width * cfg4.height * cfg4.spp
+        uids4 = torch.arange(n4, dtype=torch.int64, device="cuda")
+        L_own, _, _ = trace_bdpt_rows(caustic, uids4, cfg4)
+        L_ring, splat = emulate_ring_bdpt(caustic, uids4, cfg4, 2)
+        ring_img = film_from_radiance(L_ring, cfg4) + torch.flip(
+            (splat / float(n4)).reshape(cfg4.height, cfg4.width, 3), (0,))
+        refs = {"config1": c1_img, "config3": c3_img,
+                "config4": c4_img, "config4_L_own": L_own.cpu().numpy(),
+                "config4_ring": ring_img.cpu().numpy(),
+                "config5_target": target5.cpu().numpy(),
+                "config5_loss": loss5.cpu().numpy(),
+                "bdpt_fit_target": b_target.cpu().numpy(),
+                "bdpt_fit_loss": b_loss.cpu().numpy()}
+        refs.update({f"config3_{k}": v for k, v in c3_stats.items()})
+        refs.update({f"config5_grad_{k}": v.cpu().numpy()
+                     for k, v in g5.items()})
+        refs.update({f"bdpt_fit_grad_{k}": v.cpu().numpy()
+                     for k, v in b_g.items()})
+        np.savez(os.path.join(tmp, "chip_smoke.rank_p2-refs.npz"), **refs)
+        del L_own, L_ring, splat
+
+        t0 = time.perf_counter()
+        out["p2_gloo"] = run_world("chip_smoke.rank_p2", 2, tmp, "gloo")
+        out["p2_gloo_world_s"] = time.perf_counter() - t0
+        if torch.cuda.device_count() >= 2:
+            # a card a rank: the speed-up over this card alone, the single
+            # card's and rank 0's wall times; efficiency = T1 / (2 T2)
+            nccl = run_world("chip_smoke.rank_p2", 2, tmp, "nccl")
+            mesh_card = mesh_host.to("cuda")
+            one = {"config1": lambda: render_pt(boxes, cfg1),
+                   "config3": lambda: render_pt(mesh_card, cfg3),
+                   "config4": lambda: render_bdpt(caustic, cfg4)}
+            out["p2_nccl"] = nccl
+            out["scaling_efficiency"] = {
+                k: statistics.median(wall_s(fn, 3))
+                / (2 * nccl[0][k]["render_s"]) for k, fn in one.items()}
+
+        # the capacity scene: too many clusters for one launch
+        t0 = time.perf_counter()
+        cap = mesh_scene(device="cpu", **CAP_SCENE)
+        cap_build_s = time.perf_counter() - t0
+        _, _, max_clusters = tc.load_kernel()
+        check(cap.n_clusters > max_clusters,
+              f"capacity scene: {cap.n_clusters} clusters, the kernel "
+              f"stages {max_clusters}")
+        cap_card = cap.to("cuda")
+        n = 1024
+        o = torch.full((n, 3), 0.5, device="cuda")
+        d = torch.nn.functional.normalize(torch.randn(n, 3, device="cuda"),
+                                          dim=1)
+        zero, far = torch.zeros(n, device="cuda"), torch.full(
+            (n,), BIG, device="cuda")
+        refused = ""
+        try:
+            tc.traverse_cuda(o, d, zero, far, far,
+                             torch.full((n,), -1, dtype=torch.int32,
+                                        device="cuda"),
+                             *traverse_args(cap_card), leaf=cap.leaf_size)
+        except ValueError as e:
+            refused = str(e)
+        check(str(max_clusters) in refused,
+              f"one launch on the capacity scene was not refused: {refused!r}")
+        cap_cfg = RenderConfig(**CAP_CFG)
+        t0 = time.perf_counter()
+        cap_img, _ = render_pt(cap_card, cap_cfg,
+                               intersect_fn=intersect_clustered,
+                               occluded_fn=occluded_clustered)
+        cap_img = cap_img.cpu().numpy()
+        plain_s = time.perf_counter() - t0
+        del cap_card
+        torch.cuda.empty_cache()
+        np.savez(os.path.join(tmp, "chip_smoke.rank_capacity-refs.npz"),
+                 image=cap_img)
+        t0 = time.perf_counter()
+        out["capacity"] = run_world("chip_smoke.rank_capacity", 4, tmp,
+                                    "gloo")
+        out["capacity_world_s"] = time.perf_counter() - t0
+        out["capacity_scene"] = {
+            "n_tris": cap.n_tris, "n_clusters": cap.n_clusters,
+            "max_clusters": max_clusters, "refused": refused,
+            "host_build_s": cap_build_s, "plain_walk_render_s": plain_s,
+            "mean": float(cap_img.mean())}
+    check(np.isfinite(out["capacity_scene"]["mean"]),
+          "capacity render is not finite")
+    p2 = out["p2_gloo"]
+    emit("dist", **out)
+    return (p2[0]["config1"]["launches"]["fused_intersect"],
+            p2[0]["config3"]["launches"]["traverse"],
+            p2[0]["config4"]["launches"]["fused_intersect"],
+            p2[0]["config4"]["ring_launches"]["fused_intersect"],
+            p2[0]["config5"]["launches_step"]["fused_intersect"])
+
+
 def main():
     start = time.perf_counter()
     phase_device()
@@ -1915,10 +2467,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     mesh = phase_build()
     results, max_abs = phase_kernel()
-    launches = phase_render()
+    launches, c1_img = phase_render()
     phase_parity()
     t_results, t_max_abs = phase_traverse(mesh)
-    t_launches, mesh_img = phase_mesh_render(mesh)
+    t_launches, mesh_img, mesh_stats = phase_mesh_render(mesh)
     phase_mesh_parity()
     p_results = phase_pairs(mesh)
     p_launches = phase_pairs_render(mesh, mesh_img)
@@ -1926,6 +2478,8 @@ def main():
     b_launches, bdpt_img = phase_bdpt_render()
     phase_progressive(bdpt_img)
     fit_step, fit_step_remat = phase_fit()
+    dp1, tiled3, dp4, ring4, dp5 = phase_dist(c1_img, mesh_img, mesh_stats,
+                                              bdpt_img.cpu().numpy())
     emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
@@ -1944,6 +2498,10 @@ def main():
         "launches_bdpt": b_launches,
         "launches_fit_step": fit_step,
         "launches_fit_step_remat": fit_step_remat,
+        "launches_dp_per_rank": dp1,
+        "launches_dp_bdpt_per_rank": dp4,
+        "launches_bdpt_ring_per_rank": ring4,
+        "launches_dp_fit_step_per_rank": dp5,
         "max_abs_err": max_abs,
         "ms": main_case["ms"],
         "device_ms": main_case["device_ms"],
@@ -1957,6 +2515,7 @@ def main():
         "source": "tputracer_torch/csrc/traverse.cu",
         "replaces": "tputracer/accel/traverse_tpu.py:173",
         "launches": t_launches,
+        "launches_tiled_per_rank": tiled3,
         "max_abs_err": t_max_abs,
         "ms": t_case["ms"],
         "device_ms": t_case["device_ms"],

@@ -553,3 +553,114 @@ def test_cuda_fit_resume_matches_uninterrupted(tmp_path):
     assert [h["loss"] for h in h_res] == [h["loss"] for h in h_full[3:]]
     for k in p_full:
         assert p_res[k].is_cuda and torch.equal(p_res[k], p_full[k]), k
+
+
+@functools.lru_cache(maxsize=None)
+def dist_ranks(out_dir):
+    """Two gloo ranks sharing the card (tests/torch_dist_worker.py, mode
+    "card"), toward the single card's config-5 target at 32x32; their
+    saved results, run once per test process."""
+    import os
+
+    import torch_dist_worker as W
+    from chip_smoke import FIT_CFG, fit_start
+
+    need_card()
+    sc = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(**dict(FIT_CFG, width=32, height=32))
+    with torch.no_grad():
+        target, _ = render_pt(sc, cfg)
+    os.makedirs(out_dir, exist_ok=True)
+    tgt = os.path.join(out_dir, "target.npy")
+    np.save(tgt, target.cpu().numpy())
+    for rc, _, err in W.run_world("card", 2, out_dir, timeout=300,
+                                  target=tgt):
+        assert rc == 0, err[-3000:]
+    return [W.load(out_dir, r) for r in range(2)], target, fit_start(sc), cfg
+
+
+@pytest.fixture
+def dist_world(tmp_path_factory):
+    need_card()
+    return dist_ranks(str(tmp_path_factory.getbasetemp() / "dist_card"))
+
+
+@pytest.mark.cuda
+def test_cuda_dist_kernel_on_ring_hops_matches_plain(dist_world):
+    """The traversal kernel on each second hop of a tiled config-3 chunk
+    (the other rank's rays, with the carry of their first hop, in this
+    rank's clusters), closest and any hit, against the clustered walk on
+    the same inputs: bit for bit."""
+    ranks, _, _, _ = dist_world
+    for z in ranks:
+        assert z["hop_bitwise"].all()
+        assert z["hop_carried"].sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_dist_tiled_matches_replicated(dist_world):
+    """render_tiled of config 3 at 64x64 on two ranks sharing the card
+    against the single card's render (rtol 2e-5, atol 2e-6), with equal
+    ray counts."""
+    ranks, _, _, _ = dist_world
+    from chip_smoke import MESH_CFG
+
+    cfg = RenderConfig(**dict(MESH_CFG, width=64, height=64))
+    ref, stats = render_pt(mesh_scene(subdiv=6, device="cuda"), cfg)
+    for z in ranks:
+        np.testing.assert_allclose(z["tiled_img"], ref.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-6)
+        for k in ("rays_closest", "rays_shadow"):
+            np.testing.assert_array_equal(z[f"tiled_{k}"],
+                                          stats[k].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_dist_fit_step_matches_grad_render(dist_world):
+    """fit_step_sharded on two ranks sharing the card against the single
+    card's grad_render: the loss at rtol 1e-6, the gradients within 1e-5
+    of each table's largest entry."""
+    from tputracer_torch.api import grad_render
+
+    ranks, target, start, cfg = dist_world
+    loss, grads = grad_render(cornell_box("boxes", device="cuda"), start,
+                              target, cfg)
+    for z in ranks:
+        np.testing.assert_allclose(z["fit_loss"], float(loss), rtol=1e-6)
+        for k, g in grads.items():
+            g = g.cpu().numpy()
+            np.testing.assert_allclose(z[f"fit_grad_{k}"], g, rtol=0,
+                                       atol=1e-5 * np.abs(g).max())
+
+
+@pytest.mark.cuda
+def test_cuda_dist_nccl_world_of_one_is_api_render(tmp_path):
+    """A world of one on NCCL: render_sharded has api.render's bits."""
+    from tputracer_torch.api import render
+    from tputracer_torch.dist import launch, make_mesh, render_sharded
+
+    need_card()
+    sc = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(width=64, height=64, spp=4, max_bounces=4)
+    launch.initialize(f"file://{tmp_path}/world", 1, 0, backend="nccl")
+    try:
+        img, stats = render_sharded(sc, cfg, make_mesh())
+    finally:
+        launch.shutdown()
+    ref, ref_stats = render(sc, cfg)
+    assert torch.equal(img, ref)
+    for k in ref_stats:
+        assert torch.equal(stats[k], ref_stats[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_dist_nccl_refuses_two_ranks_on_one_card(tmp_path):
+    """Two NCCL ranks on one card: each rank's initialize raises, naming
+    gloo, before NCCL communicates."""
+    import torch_dist_worker as W
+
+    need_card()
+    for rc, _, err in W.run_world("join", 2, str(tmp_path), timeout=120,
+                                  backend="nccl"):
+        assert rc != 0
+        assert "share one" in err and "gloo" in err, err[-3000:]

@@ -19,6 +19,7 @@ from tputracer.integrators.pt import render_pt as jax_render_pt
 from tputracer.scene import cornell_box as jax_cornell_box
 from tputracer_torch import fit as tfit
 from tputracer_torch.config import BdptConfig, RenderConfig
+from tputracer_torch.dist.mesh import Mesh
 from tputracer_torch.integrators.bdpt import render_bdpt
 from tputracer_torch.integrators.pt import render_pt
 from tputracer_torch.scene import cornell_box
@@ -172,14 +173,16 @@ def test_fit_custom_optimizer():
 
 
 @pytest.mark.parametrize("kw, error", [
-    (dict(mesh=object()), NotImplementedError),
-    (dict(mesh=object(), tiled=True), NotImplementedError),
+    (dict(mesh=Mesh((3,), ("dp",), 0, 3, "gloo")), ValueError),
+    (dict(mesh=Mesh((1,), ("dp",), 0, 1, "gloo"), tiled=True), ValueError),
     (dict(tiled=True), ValueError),
     (dict(integrator="mlt"), ValueError)],
     ids=["mesh", "tiled", "tiled without mesh", "unknown integrator"])
 def test_fit_refuses_what_it_cannot_run(kw, error):
-    """Distribution is not ported: mesh= raises, never falls back to one
-    device."""
+    """fit refuses, before any step: a mesh that does not divide the
+    image's rows, tiling an unclustered scene, tiled=True without a mesh,
+    an unknown integrator.  (The meshes are made without a world: the
+    refusals come before any collective.)"""
     scene, cfg, target = problem()
     with pytest.raises(error):
         tfit.fit(scene, target, cfg=cfg, steps=1, log_every=0, **kw)

@@ -5,7 +5,9 @@ package ``tputracer``, then imports tputracer_torch, builds the Cornell
 boxes scene and renders it on the CPU, renders the caustics scene with BDPT,
 single shot and progressive, then builds a clustered mesh scene
 (with the native BVH builder and with the NumPy one) and renders that,
-then takes gradients with grad_render and runs a two-step fit.
+then takes gradients with grad_render and runs a two-step fit, then
+imports tputracer_torch.dist and renders with render_sharded in a gloo
+world of one.
 """
 
 import os
@@ -87,6 +89,18 @@ _, params, history = fit(boxes, target, cfg=gcfg, steps=2, init=start,
                          log_every=0)
 assert [h["step"] for h in history] == [0, 1]
 assert not torch.equal(params["mat_albedo"], start["mat_albedo"])
+
+# distribution: a gloo world of one renders the same bits
+import tempfile
+from tputracer_torch.dist import launch, make_mesh, render_sharded
+
+with tempfile.TemporaryDirectory() as tmp:
+    launch.initialize(f"file://{tmp}/world", 1, 0, backend="gloo")
+    try:
+        img_d, _ = render_sharded(boxes, gcfg, make_mesh())
+    finally:
+        launch.shutdown()
+assert torch.equal(img_d, target)
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", float(img.mean()))

@@ -5,11 +5,19 @@ Kernels are compiled with ``nvcc`` at first use, never at import, into
 has a plain C interface and is loaded with ctypes; its file name carries
 a hash of the source and the flags, so an edited kernel is rebuilt and an
 unchanged one is loaded from the cache.
+
+Processes that start together (the ranks of a world sharing one build
+directory) build each library once: the first takes a lock beside it and
+compiles to a temporary name, then renames the file into place; the
+others wait on the lock and load that file.  The lock is an ``flock``,
+which the system drops when its holder dies, so a lock file left behind
+never blocks a later build.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -54,17 +62,29 @@ def library_path(source: str) -> Path:
 
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (if not cached) and load it."""
-    src = CSRC / source
     so = library_path(source)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
+        with open(so.with_name(f"{so.name}.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not so.exists():     # else another process built it
+                _build(source, so)
+    return ctypes.CDLL(str(so))
+
+
+def _build(source, so):
+    """nvcc ``csrc/<source>`` to a temporary name, then rename it to
+    ``so``: no process ever loads half a library."""
+    src = CSRC / source
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    try:
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
         os.replace(tmp, so)
-        BUILD_SECONDS[source] = time.perf_counter() - t0
-        BUILD_LOG[source] = proc.stderr
-    return ctypes.CDLL(str(so))
+    finally:
+        tmp.unlink(missing_ok=True)
+    BUILD_SECONDS[source] = time.perf_counter() - t0
+    BUILD_LOG[source] = proc.stderr

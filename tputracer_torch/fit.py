@@ -16,7 +16,10 @@ gradient descent through the renderer, on torch.autograd.
     uninterrupted one because the render's RNG is keyed by the path uid,
     not by the wall clock or a generator's state.
 
-Distribution (``mesh=``, ``tiled=True``) is not ported yet and raises.
+With ``mesh=`` (``tputracer_torch.dist``) every rank of the world runs the
+same fit: rays sharded over the mesh, the loss and gradients all-reduced,
+so every rank takes the same Adam steps; ``tiled=True`` also splits the
+geometry over the ranks.  Rank 0 alone writes the checkpoint and the logs.
 """
 
 from __future__ import annotations
@@ -106,6 +109,23 @@ def _fit_chain_single(scene, params, target, cfg, opt, n_steps,
         scene, params, target, opt, n_steps)
 
 
+def _chain_for(mesh, tiled, integrator):
+    """The fit's chain of steps: chain(scene, params, target, cfg, opt, k)
+    -> (k,) losses."""
+    if mesh is None:
+        return lambda sc, p, t, cfg, opt, k: _fit_chain_single(
+            sc, p, t, cfg, opt, k, integrator)
+    from tputracer_torch import dist
+
+    if tiled:
+        fn = dist.fit_chain_tiled
+    elif integrator == "bdpt":
+        fn = dist.fit_chain_bdpt_sharded
+    else:
+        fn = dist.fit_chain_sharded
+    return lambda sc, p, t, cfg, opt, k: fn(sc, p, t, cfg, mesh, opt, k)
+
+
 def _adam(params_list, lr):
     return torch.optim.Adam(params_list, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                             foreach=False)
@@ -188,19 +208,23 @@ def fit(
     uninterrupted one with the same checkpoint config, and reproduces it.
 
     integrator: "pt" (default) or "bdpt", the renderer the loss
-    differentiates through ("bdpt" needs a BdptConfig cfg).  mesh= and
-    tiled=True need the distribution modes, which raise
-    NotImplementedError here.  The fit runs on the scene's device: the
-    card unless the builder was asked for the CPU.
+    differentiates through ("bdpt" needs a BdptConfig cfg).  The fit runs
+    on the scene's device: the card unless the builder was asked for the
+    CPU.
+
+    mesh: a ``dist.make_mesh`` mesh; every rank of it calls fit with the
+    same arguments.  Rays are sharded over it
+    (``dist.fit_chain_sharded``, or ``dist.fit_chain_bdpt_sharded`` for
+    "bdpt", whose t=1 splat gradient crosses the ranks); tiled=True (needs
+    mesh=, integrator="pt" and a clustered scene) also splits the
+    geometry, C/P clusters a rank (``dist.fit_chain_tiled``).  Rank 0
+    alone writes checkpoint_path, log_file, TensorBoard and the printed
+    lines; every rank resumes from checkpoint_path.
     """
     from tputracer_torch.config import BdptConfig, RenderConfig
 
     if tiled and (mesh is None or integrator != "pt"):
         raise ValueError("fit(tiled=True) needs mesh= and integrator='pt'")
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=...) and fit(tiled=True) need tputracer_torch.dist, "
-            "which is not ported yet (ROADMAP A.6)")
     _render_for(integrator)
     dev = scene.device
     if integrator == "bdpt":
@@ -218,6 +242,11 @@ def fit(
     step = 0
     if checkpoint_path and resume and os.path.exists(checkpoint_path):
         step = load_checkpoint(checkpoint_path, params, opt)
+    chain = _chain_for(mesh, tiled, integrator)
+    lead = mesh is None or mesh.rank == 0   # the rank that writes
+    if not lead:
+        log_file = tensorboard_dir = None
+        log_every = 0
 
     history = []
     logf = open(log_file, "a") if log_file else None
@@ -233,8 +262,7 @@ def fit(
             if checkpoint_path and checkpoint_every:
                 nxt = (step // checkpoint_every + 1) * checkpoint_every
                 k = min(k, nxt - step)
-            losses = _fit_chain_single(scene, params, target, cfg, opt, k,
-                                       integrator).tolist()
+            losses = chain(scene, params, target, cfg, opt, k).tolist()
             for i, lv in enumerate(losses):
                 rec = {"step": step + i, "loss": lv}
                 history.append(rec)
@@ -256,7 +284,7 @@ def fit(
                     tb.add_scalar(f"fit/{name}_mean_abs",
                                   float(v.detach().abs().mean()), last)
             step += len(losses)
-            if checkpoint_path and checkpoint_every and (
+            if lead and checkpoint_path and checkpoint_every and (
                     step % checkpoint_every == 0 or step == steps):
                 save_checkpoint(checkpoint_path, step, params, opt)
     finally:
