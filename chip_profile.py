@@ -25,10 +25,19 @@ intersection kernel's path):
     boxes, 128x128, 4 spp, 3 bounces, Adam), without and with remat: the
     untraced step, then the forward pass and the backward pass (with
     Adam's update) traced apart: kernels and busy time of each, the top
-    kernels and ops, the device time of the material lookups' backward
-    (IndexBackward0) and its share of the backward, and the idle share.
+    kernels and ops, the device time of the table lookups' backward
+    (lookup.fetch's one-hot matmul; IndexBackward0 where table[idx] is
+    left) and its share of the backward, and the idle share.
     ``python3 -c "import chip_profile as c; c.fit_config5()"`` runs it
     alone.
+  * lookup_backward: one lookup's backward alone at 2^16 and 2^20 lanes,
+    five ways (lookup_backward_costs).
+  * ``python3 -c "import chip_profile as c; c.lookups('DIR')"``, with an
+    earlier commit unpacked in DIR as for ``--parent`` below: configs 1-4
+    rendered by both checkouts in one process, their images' and ray
+    counts' bits compared, launches and device kernels a render
+    (render_bits); config 5's step of both in turns (fit_config5); and
+    lookup_backward.
 
 Config 3 tiled over two ranks that share the card (gloo), the geometry
 split and the rays going round the ring (tputracer_torch.dist):
@@ -82,6 +91,8 @@ checkout's kernels, and:
   * renders config 1 through the parent's intersection kernel too (its
     intersect_fused and occluded_fused as render_pt's hooks), the untraced
     renders in turns (parent, this, this, parent), and profiles it;
+  * times config 5's step of both in turns (fit_config5) and compares the
+    renders of configs 1-4 (render_bits);
   * prints an ``ab`` line per ray set: for the intersection kernel,
     chip_smoke's phase-3 sets at 2^20 rays (random rays on boxes and
     spheres, closest and any hit; the closest-hit and shadow rays of
@@ -221,19 +232,19 @@ def per_call(fn, reps=20):
 
 
 def parent_modules(root):
-    """The accel modules of the checkout at ``root``, as a namespace: cl
+    """The modules of the checkout at ``root``, as a namespace: cl
     (clustered), tc (traverse_cuda), ic (intersect_cuda), pairs and pc
-    (pairs_cuda).  Its package is imported under its own name while this
-    one's modules are set aside, and its three kernel sources are built
-    (into its own csrc/build) before they are put back."""
+    (pairs_cuda) of its accel; its api, config, fit, scene and the two
+    integrators, pt and bdpt.  Its package is imported under its own name
+    while this one's modules are set aside, and its three kernel sources
+    are built (into its own csrc/build) before they are put back."""
     name = "tputracer_torch"
     ours = {k: sys.modules.pop(k) for k in list(sys.modules)
             if k == name or k.startswith(name + ".")}
     sys.path.insert(0, str(Path(root).resolve()))
     try:
-        from tputracer_torch.accel import (clustered, intersect_cuda, pairs,
-                                           pairs_cuda, traverse_cuda)
-        for mod in (traverse_cuda, intersect_cuda, pairs_cuda):
+        mods = this_modules()
+        for mod in (mods.tc, mods.ic, mods.pc):
             mod.load_kernel()
     finally:
         sys.path.pop(0)
@@ -241,8 +252,20 @@ def parent_modules(root):
                   if k == name or k.startswith(name + ".")]:
             del sys.modules[k]
         sys.modules.update(ours)
+    return mods
+
+
+def this_modules():
+    """The modules of the tputracer_torch that imports now, named as
+    parent_modules names them."""
+    from tputracer_torch import api, config, fit, scene
+    from tputracer_torch.accel import (clustered, intersect_cuda, pairs,
+                                       pairs_cuda, traverse_cuda)
+    from tputracer_torch.integrators import bdpt, pt
+
     return SimpleNamespace(cl=clustered, tc=traverse_cuda, ic=intersect_cuda,
-                           pairs=pairs, pc=pairs_cuda)
+                           pairs=pairs, pc=pairs_cuda, api=api, config=config,
+                           fit=fit, scene=scene, pt=pt, bdpt=bdpt)
 
 
 def same_bits(a, b):
@@ -638,12 +661,26 @@ def op_device_ms(prof):
     return rows
 
 
-# the backward of the material lookups table[idx] (bsdf._lookup,
-# lights.sample_light): an accumulate of every lane into a few table rows
+# the backward of table[idx] (the parent's material and emitter lookups,
+# and the lookups of tables above lookup.fetch's threshold): a sort-based
+# accumulate of every lane into the table's rows; and lookup.fetch's
+# one-hot matmul
 LOOKUP_BACKWARD = "IndexBackward0"
+ONE_HOT_BACKWARD = "_OneHotFetchBackward"
 
 
-def fit_config5():
+def lookup_backward_fields(ops):
+    """The device ms (with children) and calls of the lookups' two
+    backward ops in op_device_ms rows."""
+    out = {}
+    for key, op in (("lookup_backward", LOOKUP_BACKWARD),
+                    ("one_hot_backward", ONE_HOT_BACKWARD)):
+        out[key + "_ms"] = sum(t for k, _, t, _ in ops if k == op)
+        out[key + "_calls"] = sum(c for k, c, _, _ in ops if k == op)
+    return out
+
+
+def fit_config5(old=None):
     """Config 5's fit step (chip_smoke.FIT_CFG: Cornell boxes, 128x128,
     4 spp, 3 bounces, rr_start=2, one chunk of 2^16 paths, from albedo x
     0.5 and emission x 2, Adam at 1e-2), without and with remat: the
@@ -653,88 +690,106 @@ def fit_config5():
     with Adam's update.  A fit_profile line each: kernels and busy time of
     each part, the intersection kernel's device time, the top kernels, the
     top ops by their own device time, the lookups' backward (IndexBackward0
-    with its children) and its share of the backward's busy time, and the
-    idle share 1 - (forward + backward busy) / untraced step."""
+    and lookup.fetch's one-hot backward, each with its children: device
+    ms and calls) and its share of the backward's busy time, and the idle
+    share 1 - (forward + backward busy) / untraced step.  With ``old``
+    (parent_modules) the parent's step too, from its own modules: the
+    untraced steps in turns (parent, this, this, parent; 5 each time),
+    a line for each side."""
     import dataclasses
 
     from chip_smoke import FIT_CFG, FIT_LR, fit_start, wall_s
-    from tputracer_torch import fit as tfit
-    from tputracer_torch.api import _loss_l2
-    from tputracer_torch.config import RenderConfig
-    from tputracer_torch.integrators.pt import render_pt
-    from tputracer_torch.scene import cornell_box
 
-    sc = cornell_box("boxes", device="cuda")
-    base = RenderConfig(**FIT_CFG)
-    with torch.no_grad():
-        target, _ = render_pt(sc, base)
+    sides = {"this": this_modules()}
+    order = ("this",)
+    if old is not None:
+        sides["parent"] = old
+        order = ("parent", "this", "this", "parent")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for remat in (False, True):
-        cfg = base.with_(remat=remat)
-        p = {k: v.detach().clone().requires_grad_()
-             for k, v in fit_start(sc).items()}
-        opt = tfit._adam(list(p.values()), FIT_LR)
+        runs = {}
+        for side, m in sides.items():
+            sc = m.scene.cornell_box("boxes", device="cuda")
+            cfg = m.config.RenderConfig(**FIT_CFG).with_(remat=remat)
+            with torch.no_grad():
+                target, _ = m.pt.render_pt(sc, cfg)
+            p = {k: v.detach().clone().requires_grad_()
+                 for k, v in fit_start(sc).items()}
+            opt = m.fit._adam(list(p.values()), FIT_LR)
 
-        def step():
-            tfit._fit_step_single(sc, p, target, cfg, opt)
+            # fit._fit_step_single, spelled out: fit.py imports render_pt
+            # when it is called, which for the parent's fit would be this
+            # checkout's
+            def step(m=m, sc=sc, p=p, target=target, cfg=cfg, opt=opt):
+                m.fit.chain_steps(
+                    lambda s, q, t: m.api._loss_and_grads(
+                        m.pt.render_pt, s, q, t, cfg), sc, p, target, opt, 1)
 
-        step()   # warm-up
-        walls = wall_s(step, 5)
-        with torch.profiler.profile(activities=acts) as fwd:
-            img, _ = render_pt(dataclasses.replace(sc, **p), cfg)
-            loss = _loss_l2(img, target)
-            torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as bwd:
-            grads = torch.autograd.grad(loss, list(p.values()))
-            for v, g in zip(p.values(), grads):
-                v.grad = g
-            opt.step()
-            opt.zero_grad(set_to_none=True)
-            tfit._project(p)
-            torch.cuda.synchronize()
-        parts = {}
-        for name, prof in (("forward", fwd), ("backward", bwd)):
-            n, busy_ms, span_ms, top, b1_ms = busy(prof, "fused_intersect")
-            ops = op_device_ms(prof)
-            parts[name] = {
-                "kernels": n, "busy_ms": busy_ms, "traced_span_ms": span_ms,
-                "intersect_ms": b1_ms, "top": top,
-                "top_ops": [(k[:50], c, round(t, 4), round(s, 4)) for
-                            k, c, t, s in sorted(ops, key=lambda r: -r[3])[:10]],
-                "lookup_backward_ms": sum(t for k, _, t, _ in ops
-                                          if k == LOOKUP_BACKWARD),
-                "lookup_backward_calls": sum(c for k, c, _, _ in ops
-                                             if k == LOOKUP_BACKWARD)}
-        wall = statistics.median(walls) * 1e3
-        total_busy = parts["forward"]["busy_ms"] + parts["backward"]["busy_ms"]
-        print(json.dumps({
-            "phase": "fit_profile", "config": 5, "remat": remat,
-            "untraced_step_ms": wall,
-            "untraced_all_ms": [w * 1e3 for w in walls],
-            "kernels": parts["forward"]["kernels"]
-            + parts["backward"]["kernels"],
-            "busy_ms": total_busy, "idle_share": 1.0 - total_busy / wall,
-            "lookup_backward_share_of_backward":
-                parts["backward"]["lookup_backward_ms"]
-                / parts["backward"]["busy_ms"],
-            **parts}), flush=True)
+            step()   # warm-up
+            runs[side] = (m, sc, p, target, cfg, opt, step)
+        walls = {k: [] for k in sides}
+        for side in order:
+            walls[side] += wall_s(runs[side][-1], 5)
+        for side, (m, sc, p, target, cfg, opt, _) in runs.items():
+            with torch.profiler.profile(activities=acts) as fwd:
+                img, _ = m.pt.render_pt(dataclasses.replace(sc, **p), cfg)
+                loss = m.api._loss_l2(img, target)
+                torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as bwd:
+                grads = torch.autograd.grad(loss, list(p.values()))
+                for v, g in zip(p.values(), grads):
+                    v.grad = g
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+                m.fit._project(p)
+                torch.cuda.synchronize()
+            parts = {}
+            for name, prof in (("forward", fwd), ("backward", bwd)):
+                n, busy_ms, span_ms, top, b1_ms = busy(prof,
+                                                       "fused_intersect")
+                ops = op_device_ms(prof)
+                parts[name] = {
+                    "kernels": n, "busy_ms": busy_ms,
+                    "traced_span_ms": span_ms, "intersect_ms": b1_ms,
+                    "top": top,
+                    "top_ops": [(k[:50], c, round(t, 4), round(o, 4))
+                                for k, c, t, o in
+                                sorted(ops, key=lambda r: -r[3])[:10]],
+                    **lookup_backward_fields(ops)}
+            wall = statistics.median(walls[side]) * 1e3
+            total_busy = (parts["forward"]["busy_ms"]
+                          + parts["backward"]["busy_ms"])
+            bwd_part = parts["backward"]
+            print(json.dumps({
+                "phase": "fit_profile", "config": 5, "remat": remat,
+                "code_of": side, "untraced_step_ms": wall,
+                "untraced_all_ms": [w * 1e3 for w in walls[side]],
+                "kernels": parts["forward"]["kernels"] + bwd_part["kernels"],
+                "busy_ms": total_busy, "idle_share": 1.0 - total_busy / wall,
+                "lookups_backward_share_of_backward":
+                    (bwd_part["lookup_backward_ms"]
+                     + bwd_part["one_hot_backward_ms"])
+                    / bwd_part["busy_ms"],
+                **parts}), flush=True)
 
 
 def lookup_backward_costs():
-    """The backward of one material lookup alone (bsdf._lookup, table[idx]
-    on Cornell boxes' (6, 3) albedo table) with the material ids of config
-    5's camera hits (128x128 4 spp: 2^16 lanes; and 512x512 4 spp: 2^20),
-    against three other ways to compute the same (6, 3) gradient: an
-    index_add_ into zeros (atomics), a one-hot matmul and a masked
-    broadcast product summed over the lanes.  A lookup_backward line each:
-    ms (cuda_ms), whether three runs give the same bits, the largest error
-    over the largest entry against table[idx]'s, and the bound: each lane's
-    id (4 bytes) and gradient row (12) read once, the table written once,
-    over 3.35 TB/s."""
+    """The backward of one material lookup alone (Cornell boxes' (6, 3)
+    albedo table) with the material ids of config 5's camera hits
+    (128x128 4 spp: 2^16 lanes; and 512x512 4 spp: 2^20) in five ways:
+    table[idx]'s own (IndexBackward0, the parent's lookups), lookup.fetch
+    (the one-hot matmul in blocks, through autograd), an index_add_ into
+    zeros (atomics), a one-hot matmul and a masked broadcast product
+    summed over the lanes.  A lookup_backward line each: ms (cuda_ms),
+    whether three runs give the same bits, the largest error over the
+    largest entry against table[idx]'s, and the bound: each lane's id (4
+    bytes) and gradient row (12) read once, the table written once, over
+    3.35 TB/s."""
     import torch.nn.functional as F
 
     from chip_smoke import BIG, FIT_CFG, PEAK_BYTES
+    from tputracer_torch import lookup
     from tputracer_torch.accel import intersect
     from tputracer_torch.config import RenderConfig
     from tputracer_torch.integrators.pt import camera_rays
@@ -756,6 +811,9 @@ def lookup_backward_costs():
         ways = {
             "table[idx] (IndexBackward0)": lambda: torch.autograd.grad(
                 table[idx.long()], [table], grad)[0],
+            "lookup.fetch (one-hot matmul in blocks)":
+                lambda: torch.autograd.grad(lookup.fetch(table, idx),
+                                            [table], grad)[0],
             "index_add_": lambda: torch.zeros_like(table).index_add_(
                 0, idx, grad),
             "one-hot matmul": lambda: F.one_hot(idx.long(), M).to(
@@ -775,6 +833,75 @@ def lookup_backward_costs():
                 "bound_ms": (n * 16 + M * 12) / PEAK_BYTES * 1e3,
                 "rows_hit": torch.bincount(idx.long(), minlength=M).tolist()}),
                 flush=True)
+
+
+def render_bits(old):
+    """Configs 1-4 rendered by this checkout and by the parent's modules
+    (``old``, parent_modules) in one process: a render_bits line each
+    with the two images and ray counts equal bit for bit or not (BDPT:
+    the per-path radiance L_own of trace_bdpt_rows and its ray counts
+    bit for bit, the image, whose splat index_add_ sums in no fixed order
+    on the card, by its largest difference), each side's intersection and
+    traversal launches in one render, and each side's device kernels in
+    one traced render (after an untraced one).  Config 1: boxes 512x512
+    16 spp 4 bounces; 2: spheres 256x256 64 spp 6 bounces rr_start=3; 3:
+    mesh_scene(subdiv=6) at MESH_CFG; 4: BDPT on caustic at BDPT_CFG."""
+    from chip_smoke import BDPT_CFG, SPHERES_CFG
+
+    configs = {
+        1: ("pt", lambda m: m.scene.cornell_box("boxes", device="cuda"),
+            dict(width=512, height=512, spp=16, max_bounces=4)),
+        2: ("pt", lambda m: m.scene.cornell_box("spheres", device="cuda"),
+            SPHERES_CFG),
+        3: ("pt", lambda m: m.scene.mesh_scene(subdiv=6, device="cuda"),
+            MESH_CFG),
+        4: ("bdpt", lambda m: m.scene.cornell_box("caustic", device="cuda"),
+            BDPT_CFG),
+    }
+    sides = {"parent": old, "this": this_modules()}
+    for config, (kind, build, kw) in configs.items():
+        out = {}
+        for side, m in sides.items():
+            sc = build(m)
+            if kind == "pt":
+                cfg = m.config.RenderConfig(**kw)
+                run = functools.partial(m.pt.render_pt, sc, cfg)
+            else:
+                cfg = m.config.BdptConfig(**kw)
+                run = functools.partial(m.bdpt.render_bdpt, sc, cfg)
+            m.ic.LAUNCHES = m.tc.LAUNCHES = 0
+            img, stats = run()
+            torch.cuda.synchronize()
+            launches = {"fused_intersect": m.ic.LAUNCHES,
+                        "traverse": m.tc.LAUNCHES}
+            bits = img
+            if kind == "bdpt":
+                n = cfg.width * cfg.height * cfg.spp
+                bits, _, stats = m.bdpt.trace_bdpt_rows(
+                    sc, torch.arange(n, device="cuda"), cfg)
+            kernels = profiled(run)[0]
+            out[side] = (img, bits, stats, launches, kernels)
+        (img_p, bits_p, st_p, *_), (img_t, bits_t, st_t, *_) = (
+            out["parent"], out["this"])
+        print(json.dumps({
+            "phase": "render_bits", "config": config,
+            "compared": "L_own" if kind == "bdpt" else "image",
+            "bitwise": torch.equal(bits_p, bits_t),
+            "ray_counts_bitwise": all(torch.equal(st_p[k], st_t[k])
+                                      for k in ("rays_closest",
+                                                "rays_shadow")),
+            "image_max_abs_err": float((img_p - img_t).abs().max()),
+            "launches": {k: v[3] for k, v in out.items()},
+            "kernels": {k: v[4] for k, v in out.items()}}), flush=True)
+
+
+def lookups(parent):
+    """The lookups' module against the checkout at ``parent``: render_bits,
+    fit_config5 in turns with the parent's, and lookup_backward_costs."""
+    old = parent_modules(parent)
+    render_bits(old)
+    fit_config5(old)
+    lookup_backward_costs()
 
 
 def rank_dist_config3(mesh, refs):
@@ -872,10 +999,7 @@ def rank_dist_fit5(mesh, refs):
             "fit_steps_per_s": [FIT_K / s for s in fit_s],
             "kernels": n, "busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall, "intersect_ms": b1_ms,
-            "lookup_backward_ms": sum(t for k, _, t, _ in ops
-                                      if k == LOOKUP_BACKWARD),
-            "lookup_backward_calls": sum(c for k, c, _, _ in ops
-                                         if k == LOOKUP_BACKWARD),
+            **lookup_backward_fields(ops),
             "traced_span_ms": span_ms, "top": top,
             "top_ops": [(k[:50], c, round(t, 4), round(o, 4)) for k, c, t, o
                         in sorted(ops, key=lambda r: -r[3])[:8]]}
@@ -990,9 +1114,10 @@ def main():
                              f"the parent")
     render_config1(old and old.ic)
     render_config4()
-    fit_config5()
+    fit_config5(old)
     lookup_backward_costs()
     if old is not None:
+        render_bits(old)
         ab_intersect(old.ic)
 
     sc = mesh_scene(subdiv=6, device="cuda")

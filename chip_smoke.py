@@ -91,13 +91,15 @@ Run from the root of a checkout.  Phases, each printing one line:
      launch the intersection kernel 7 times a step (4 closest-hit and 3
      shadow calls), 14 with remat (the backward pass recomputes each
      bounce), the other kernels never, and the loss must fall.  Three
-     identical grad_render calls say whether the gradients repeat their
-     bits on the card; a fit stopped after 16 steps and resumed to 24
-     must equal the uninterrupted one bit for bit if they do, else at
-     rtol 1e-5.  The plain hooks' loss bit for bit and gradients (bit for
-     bit, or rtol 1e-5 of the largest entry); the CPU's grad_render at
+     identical grad_render calls must give the same gradient bits (the
+     table lookups' backward is lookup.fetch's one-hot matmul, whose
+     summation order the shapes fix); a fit stopped after 16 steps and
+     resumed to 24 must equal the uninterrupted one bit for bit.  The
+     plain hooks' loss and gradients bit for bit; the CPU's grad_render at
      32x32 (loss rtol 1e-6, gradients 1e-5 of the largest entry); remat's
-     loss bit for bit and gradients at rtol 1e-5.  Chains of 8 timed with
+     loss bit for bit and gradients at rtol 1e-5.  One fit step under
+     torch.profiler: 4 B + 1 one-hot backwards a chunk and no
+     IndexBackward0 (table[idx]'s own backward).  Chains of 8 timed with
      and without remat (steps/s, forward+backward rays/s).  A BDPT fit
      (boxes 64x64 4 spp 3 bounces, 6 steps: bdpt_launches(3) a step, the
      loss falls); grad_render on mesh_scene(subdiv=4) at 64x64 through the
@@ -126,6 +128,13 @@ Run from the root of a checkout.  Phases, each printing one line:
      capacity scene (mesh_scene(subdiv=8, leaf_size=128), more clusters
      than one traversal launch stages, which must refuse it) tiled over
      P = 4 ranks from a host build, against the plain walk on the card.
+ 16. spheres: the config-2 path, api.render of Cornell "spheres" (a mirror
+     and a glass sphere) at 256x256, 64 spp, 6 bounces, rr_start=3, in
+     chunks of 2^20; it must launch the intersection kernel 52 times (4
+     chunks x (7 closest + 6 shadow)) and the other kernels never, give a
+     finite image with a mean in [0.15, 0.30], and the image and ray
+     counts of the plain version's hooks bit for bit.  Timed as phase 4
+     (the plain render once).
 
 A kernel's ``ms`` times one call alone between CUDA events, the wrapper's
 host work included (cuda_ms: the median of 5 after 2 warm-ups);
@@ -157,6 +166,10 @@ import torch
 N_RAYS = 1 << 20
 N_CHUNK = 1 << 16     # rays per traversal call in a config-3 render
 BIG = 3.0e38
+# BASELINE config 2 (benchmarks/run.py:97-106): cornell_box("spheres"), a
+# mirror and a glass sphere; chunks of 2^20, RenderConfig's default
+SPHERES_CFG = dict(width=256, height=256, spp=64, max_bounces=6, rr_start=3,
+                   chunk_size=1 << 20)
 # BASELINE config 3 (benchmarks/run.py): mesh_scene(subdiv=6)
 MESH_CFG = dict(width=256, height=256, spp=4, max_bounces=8, rr_start=3,
                 chunk_size=1 << 16)
@@ -1755,7 +1768,8 @@ def phase_fit():
     cfg = RenderConfig(**FIT_CFG)
     paths = cfg.width * cfg.height * cfg.spp
     # closest-hit calls on bounces 0..B and shadow calls on 0..B-1, a chunk
-    per_step = -(-paths // cfg.chunk_size) * (2 * cfg.max_bounces + 1)
+    n_chunks = -(-paths // cfg.chunk_size)
+    per_step = n_chunks * (2 * cfg.max_bounces + 1)
     none = dict(fused_intersect=0, traverse=0, pair_expand=0, pair_test=0)
     with torch.no_grad():
         target, _ = render_pt(scene, cfg)
@@ -1784,11 +1798,14 @@ def phase_fit():
         check(h_remat[0]["loss"] == losses[0],
               "remat changed the first step's loss")
 
-        # do identical calls give the same gradient bits on the card?
+        # identical calls must give the same gradient bits on the card:
+        # lookup.fetch's backward sums in an order fixed by the shapes
         runs = [grad_render(scene, init, target, cfg) for _ in range(3)]
         repeat_bits = all(torch.equal(r[0], runs[0][0])
                           and grads_equal(r[1], runs[0][1]) for r in runs[1:])
         repeat_err = max(grads_rel_err(r[1], runs[0][1]) for r in runs[1:])
+        check(repeat_bits, f"three grad_render calls: the gradients differ "
+                           f"by {repeat_err} (rel)")
 
         # stop after 16 steps, resume to 24
         ck = os.path.join(tmp, "stop.npz")
@@ -1803,10 +1820,8 @@ def phase_fit():
     resume_err = max(grads_rel_err(p_res, p_full),
                      float(np.max(np.abs(np.array(res_losses)
                                          / np.array(losses[2 * FIT_K:]) - 1))))
-    # bit for bit where the gradients repeat their bits; else rtol 1e-5
-    check(resume_bits if repeat_bits else resume_err < 1e-5,
-          f"resume differs from the uninterrupted fit by {resume_err} (rel; "
-          f"gradients repeat their bits: {repeat_bits})")
+    check(resume_bits, f"resume differs from the uninterrupted fit by "
+                       f"{resume_err} (rel)")
 
     # the plain version's hooks: the same loss bits, the gradients too
     loss_k, g_k = hooked_grads(scene, init, target, cfg)
@@ -1814,12 +1829,32 @@ def phase_fit():
                                occluded_plain)
     plain_err = grads_rel_err(g_k, g_p)
     check(torch.equal(loss_k, loss_p), "plain hooks: the loss differs")
-    check(grads_equal(g_k, g_p) if repeat_bits else plain_err < 1e-5,
+    check(grads_equal(g_k, g_p),
           f"plain hooks: gradients differ by {plain_err} (rel)")
 
+    # one fit step traced: every table lookup's backward is lookup.fetch's
+    # one-hot matmul (emission and albedo at each of the B bounces, the
+    # light's emission on each but the last: 4 B + 1 a chunk), and no
+    # IndexBackward0 (table[idx]'s sort-based accumulate) is left
+    p = {k: v.detach().clone().requires_grad_() for k, v in init.items()}
+    opt = tfit._adam(list(p.values()), FIT_LR)
+    tfit._fit_step_single(scene, p, target, cfg, opt)   # warm-up
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]) as prof:
+        tfit._fit_step_single(scene, p, target, cfg, opt)
+        torch.cuda.synchronize()
+    bwd_calls = {name: sum(e.count for e in prof.key_averages()
+                           if e.key == name)
+                 for name in ("IndexBackward0", "_OneHotFetchBackward")}
+    check(bwd_calls == {"IndexBackward0": 0, "_OneHotFetchBackward":
+                        n_chunks * (4 * cfg.max_bounces + 1)},
+          f"a fit step's lookup backwards: {bwd_calls}")
+
     # the CPU's grad_render at 32x32: an H100 read the loss equal and the
-    # gradients 9.5e-8 off (rel), so 1e-6 and 1e-5 leave ~100x of room and
-    # fail a wrong entry of a small table row or a lower-precision backward
+    # gradients 9.5e-8 off (rel) through table[idx]'s backward and 6.7e-7
+    # through lookup.fetch's (the card and the CPU sum its matmul in their
+    # BLAS's orders), so 1e-6 and 1e-5 leave room and fail a wrong entry
+    # of a small table row or a lower-precision backward
     small = cfg.with_(width=32, height=32)
     cpu_scene = cornell_box("boxes", device="cpu")
     with torch.no_grad():
@@ -1866,8 +1901,8 @@ def phase_fit():
          fitted={k: v.cpu().tolist() for k, v in p_full.items()},
          grad_repeat_bitwise=repeat_bits, grad_repeat_max_rel_err=repeat_err,
          resume_bitwise=resume_bits, resume_max_rel_err=resume_err,
-         plain_grads_bitwise=grads_equal(g_k, g_p),
          plain_grads_max_rel_err=plain_err,
+         fit_step_backward_calls=bwd_calls,
          cpu_32x32_loss_rel_err=cpu_loss_err, cpu_32x32_grads_rel_err=cpu_err,
          remat_grads_max_rel_err=remat_err, **timing)
 
@@ -1930,6 +1965,62 @@ def phase_fit():
                               "2^20 paths", plain=mem[False], remat=mem[True])
     return (launches["fused_intersect"] / steps,
             launches_remat["fused_intersect"] / FIT_K)
+
+
+def phase_spheres():
+    """The config-2 path: api.render of Cornell "spheres" (a mirror and a
+    glass sphere) at 256x256, 64 spp, 6 bounces, rr_start=3, in chunks of
+    2^20 paths, counted: (B + 1) closest-hit and B shadow calls a chunk,
+    all through the intersection kernel's sphere branch; a finite image
+    with its mean in [0.15, 0.30] (phase 4's range), and the image and ray
+    counts of the plain version's hooks bit for bit.
+    render_s as phase 4 times it: CUDA events around render_pt, the median
+    of 3 after the counted render; the plain render once."""
+    from tputracer_torch.accel import intersect_plain, occluded_plain
+    from tputracer_torch.api import render
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.integrators.pt import render_pt
+    from tputracer_torch.scene import cornell_box
+
+    scene = cornell_box("spheres", device="cuda")
+    cfg = RenderConfig(**SPHERES_CFG)
+    n_paths = cfg.width * cfg.height * cfg.spp
+    want = -(-n_paths // cfg.chunk_size) * (2 * cfg.max_bounces + 1)
+    none = dict(fused_intersect=0, traverse=0, pair_expand=0, pair_test=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, counted: exactly this one call to render
+    (img, stats), launches = counted(
+        lambda: render(scene, cfg, device="cuda"),
+        dict(none, fused_intersect=want), "config-2 render")
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3),
+          f"config-2 image shape {tuple(img.shape)}")
+    check(bool(torch.isfinite(img).all()), "config-2 image not finite")
+    mean = float(img.mean())
+    check(0.15 <= mean <= 0.30, f"config-2 image mean {mean} outside "
+                                f"[0.15, 0.30]")
+    t0 = time.perf_counter()
+    img_p, stats_p = render_pt(scene, cfg, intersect_fn=intersect_plain,
+                               occluded_fn=occluded_plain)
+    torch.cuda.synchronize()
+    plain_render_s = time.perf_counter() - t0
+    check(torch.equal(img, img_p), "config 2: the kernel's image is not the "
+                                   "plain version's, bit for bit")
+    check(all(torch.equal(stats[k], stats_p[k]) for k in stats),
+          "config 2: the ray counts differ from the plain version's")
+    kernel_s = [cuda_ms(lambda: render_pt(scene, cfg), 0, 1) / 1e3
+                for _ in range(3)]
+    render_s = statistics.median(kernel_s)
+    issued = float(stats["rays_closest"].sum() + stats["rays_shadow"].sum())
+    emit("spheres", config="spheres 256x256 64spp 6 bounces rr_start=3 "
+                           "(config 2)",
+         launches=launches, mean=mean, render_s=render_s,
+         render_s_all=kernel_s,
+         flat_rays_per_s=n_paths * (2 * cfg.max_bounces + 1) / render_s,
+         issued_rays=issued, issued_rays_per_s=issued / render_s,
+         plain_render_s=plain_render_s, peak_mem_gb=peak / 1e9)
+    return launches["fused_intersect"]
 
 
 # ---- phase 15: distribution -------------------------------------------------
@@ -2480,6 +2571,7 @@ def main():
     fit_step, fit_step_remat = phase_fit()
     dp1, tiled3, dp4, ring4, dp5 = phase_dist(c1_img, mesh_img, mesh_stats,
                                               bdpt_img.cpu().numpy())
+    spheres_launches = phase_spheres()
     emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
@@ -2495,6 +2587,7 @@ def main():
         "source": "tputracer_torch/csrc/intersect.cu",
         "replaces": "tputracer/accel/intersect_tpu.py:44",
         "launches": launches,
+        "launches_config2": spheres_launches,
         "launches_bdpt": b_launches,
         "launches_fit_step": fit_step,
         "launches_fit_step_remat": fit_step_remat,

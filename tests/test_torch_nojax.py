@@ -5,9 +5,10 @@ package ``tputracer``, then imports tputracer_torch, builds the Cornell
 boxes scene and renders it on the CPU, renders the caustics scene with BDPT,
 single shot and progressive, then builds a clustered mesh scene
 (with the native BVH builder and with the NumPy one) and renders that,
-then takes gradients with grad_render and runs a two-step fit, then
-imports tputracer_torch.dist and renders with render_sharded in a gloo
-world of one.
+then takes a gradient through tputracer_torch.lookup, takes gradients
+with grad_render and runs a two-step fit, then imports
+tputracer_torch.dist and renders with render_sharded in a gloo world of
+one.
 """
 
 import os
@@ -75,9 +76,13 @@ img, stats = render(mesh, RenderConfig(width=8, height=8, spp=1),
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 assert float(img.mean()) > 0.0
 
-# gradients and a two-step fit
-from tputracer_torch import grad_render
+# the lookups' module, its one-hot backward, gradients and a two-step fit
+from tputracer_torch import grad_render, lookup
 from tputracer_torch.fit import fit
+
+tab = torch.rand((6, 3), requires_grad=True)
+lookup.fetch(tab, torch.tensor([0, 5, 5])).sum().backward()
+assert tab.grad[:, 0].tolist() == [1.0, 0.0, 0.0, 0.0, 0.0, 2.0]
 
 boxes = cornell_box("boxes", device="cpu")
 gcfg = RenderConfig(width=8, height=8, spp=1, max_bounces=2, remat=True)

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from tputracer_torch import geometry as g
+from tputracer_torch.lookup import fetch, fetch_int
 
 _BIG = 3.0e38
 
@@ -117,16 +118,17 @@ def finalize_hit(scene, o, d, t, prim, valid) -> Hit:
     # that o + 3e38*d cannot overflow into the (masked) shading math
     p = o + torch.where(valid, t, 1.0)[:, None] * d
     tri_id = torch.where(is_tri, prim, 0).clamp(min=0).long()
-    n_tri = g.normalize(scene.tri_n[tri_id])
+    n_tri = g.normalize(fetch(scene.tri_n, tri_id))
     if scene.n_spheres:
         sph_id = torch.where(is_tri, 0, prim - Tp).long()
-        n_sph = (p - scene.sph_c[sph_id]) / scene.sph_r[sph_id][:, None]
+        n_sph = (p - fetch(scene.sph_c, sph_id)) \
+            / fetch(scene.sph_r, sph_id)[:, None]
         n = torch.where(is_tri[:, None], n_tri, n_sph)
-        mat = torch.where(is_tri, scene.tri_mat[tri_id],
-                          scene.sph_mat[sph_id])
+        mat = torch.where(is_tri, fetch_int(scene.tri_mat, tri_id),
+                          fetch_int(scene.sph_mat, sph_id))
     else:
         n = n_tri
-        mat = scene.tri_mat[tri_id]
+        mat = fetch_int(scene.tri_mat, tri_id)
 
     return Hit(
         t=t,

@@ -22,28 +22,25 @@ import math
 import torch
 
 from tputracer_torch import geometry as g
+from tputracer_torch.lookup import fetch, fetch_int
 from tputracer_torch.scene.types import DIFFUSE, GLASS, MIRROR
 
 INV_PI = 1.0 / math.pi
 
 
-def _lookup(table, idx):
-    return table[idx.long()]
-
-
 def emitted(scene, mat, n, d_in):
     """One-sided emitted radiance toward the ray (-d_in). (N,3)."""
-    le = _lookup(scene.mat_emission, mat)            # (N,3)
+    le = fetch(scene.mat_emission, mat)              # (N,3)
     front = (g.dot(d_in, n) < 0.0)[:, None]
     return torch.where(front, le, 0.0)
 
 
 def eval_bsdf(scene, mat, n, wo, wi):
     """f(wo, wi): nonzero only for the diffuse lobe (deltas never eval)."""
-    kind = _lookup(scene.mat_kind, mat)
+    kind = fetch_int(scene.mat_kind, mat)
     ns = g.face_forward(n, wo)
     same_side = (g.dot(wi, ns) > 0.0) & (g.dot(wo, ns) > 0.0)
-    f_diff = _lookup(scene.mat_albedo, mat) * INV_PI
+    f_diff = fetch(scene.mat_albedo, mat) * INV_PI
     sel = (kind == DIFFUSE) & same_side
     return torch.where(sel[:, None], f_diff, 0.0)
 
@@ -54,12 +51,12 @@ def nee_nonspecular(scene, mat):
     Structural, not value-based: delta lobes always eval to 0, so their
     shadow rays are skipped; diffuse lanes are kept even with albedo 0 so
     a black material still receives NEE gradient."""
-    return _lookup(scene.mat_kind, mat) == DIFFUSE
+    return fetch_int(scene.mat_kind, mat) == DIFFUSE
 
 
 def pdf_bsdf(scene, mat, n, wo, wi):
     """Solid-angle sampling pdf of :func:`sample_bsdf` for MIS (diffuse only)."""
-    kind = _lookup(scene.mat_kind, mat)
+    kind = fetch_int(scene.mat_kind, mat)
     ns = g.face_forward(n, wo)
     cos_i = g.dot(wi, ns)
     p = torch.clamp(cos_i, min=0.0) * INV_PI
@@ -94,8 +91,8 @@ def sample_bsdf(scene, mat, n, wo, u0, u1, u2, transport_radiance=True,
     gradients, which must replay the decisions of the linearization point.
     """
     dsc = scene if decision_scene is None else decision_scene
-    kind = _lookup(scene.mat_kind, mat)
-    albedo = _lookup(scene.mat_albedo, mat)          # (N,3)
+    kind = fetch_int(scene.mat_kind, mat)
+    albedo = fetch(scene.mat_albedo, mat)            # (N,3)
     ns = g.face_forward(n, wo)                       # shading-side normal
 
     # --- diffuse: cosine-hemisphere ---
@@ -109,7 +106,7 @@ def sample_bsdf(scene, mat, n, wo, u0, u1, u2, transport_radiance=True,
 
     # --- glass: Fresnel-weighted reflect-or-refract ---
     entering = g.dot(wo, n) > 0.0
-    ior = _lookup(scene.mat_ior, mat)
+    ior = fetch(scene.mat_ior, mat)
     eta_i = torch.where(entering, 1.0, ior)
     eta_t = torch.where(entering, ior, 1.0)
     cos_i = torch.abs(g.dot(wo, ns))
@@ -118,7 +115,7 @@ def sample_bsdf(scene, mat, n, wo, u0, u1, u2, transport_radiance=True,
         fr_dec, cos_t_dec, tir_dec = fr, cos_t, tir
         eta_dec = eta_i / eta_t
     else:
-        ior_d = _lookup(dsc.mat_ior, mat)
+        ior_d = fetch(dsc.mat_ior, mat)
         ei_d = torch.where(entering, 1.0, ior_d)
         et_d = torch.where(entering, ior_d, 1.0)
         fr_dec, cos_t_dec, tir_dec = _fresnel_dielectric(cos_i, ei_d, et_d)

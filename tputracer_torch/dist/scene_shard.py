@@ -38,6 +38,7 @@ from tputracer_torch.accel.intersect_cuda import _rays
 from tputracer_torch.dist.mesh import (_bdpt_rows, _pt_rows, fit_step_rows,
                                        gather_image, pack, ring_shift,
                                        sum_stats, unpack)
+from tputracer_torch.lookup import fetch, fetch_int
 
 _BIG = 3.0e38
 
@@ -171,11 +172,12 @@ def make_ring_backends(mesh, comm_log=None, hop_log=None):
                 imp = st < best_t
                 j = torch.where(imp, sp - T_loc, 0).long()
                 p_s = od + torch.where(imp, st, 1.0)[:, None] * dd
-                n_s = (p_s - scene.sph_c[j]) / scene.sph_r[j][:, None]
+                n_s = ((p_s - fetch(scene.sph_c, j))
+                       / fetch(scene.sph_r, j)[:, None])
                 best_t = torch.where(imp, st, best_t)
                 best_g = torch.where(imp, sp + (P - 1) * T_loc, best_g)
                 best_n = torch.where(imp[:, None], n_s, best_n)
-                best_m = torch.where(imp, scene.sph_mat[j], best_m)
+                best_m = torch.where(imp, fetch_int(scene.sph_mat, j), best_m)
 
             def walk_hop(state):
                 od, dd, tn, tx, best_t, best_g, best_n, best_m = state
@@ -188,8 +190,9 @@ def make_ring_backends(mesh, comm_log=None, hop_log=None):
                 # the prim lives here, on shard mesh.rank
                 best_g = torch.where(imp, mesh.rank * T_loc + lprim, best_g)
                 best_n = torch.where(imp[:, None],
-                                     g.normalize(scene.tri_n[lp]), best_n)
-                best_m = torch.where(imp, scene.tri_mat[lp], best_m)
+                                     g.normalize(fetch(scene.tri_n, lp)),
+                                     best_n)
+                best_m = torch.where(imp, fetch_int(scene.tri_mat, lp), best_m)
                 best_t = torch.where(imp, t, best_t)
                 return [od, dd, tn, tx, best_t, best_g, best_n, best_m]
 

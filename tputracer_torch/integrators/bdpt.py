@@ -38,6 +38,7 @@ from tputracer_torch.accel import intersect, occluded
 from tputracer_torch.bsdf import emitted, eval_bsdf, pdf_bsdf, sample_bsdf
 from tputracer_torch.integrators.pt import camera_rays, film_from_radiance
 from tputracer_torch.lights import pdf_light_area, sample_light
+from tputracer_torch.lookup import fetch_int
 from tputracer_torch.scene.types import DIFFUSE
 
 _BIG = 3.0e38
@@ -109,7 +110,7 @@ def _walk(scene, o, d, beta, pdf_sa, uid, cfg, n_verts, slot, origin,
                     tmax=torch.where(alive, _BIG, 0.0))
         valid = alive & hit.valid
         pdf_fwd = _convert_density(pdf_sa, prev_p, hit.p, hit.n)
-        kind = scene.mat_kind[hit.mat.long()]
+        kind = fetch_int(scene.mat_kind, hit.mat)
         v = dict(
             p=hit.p,
             ng=hit.n,

@@ -1,9 +1,9 @@
 """Emissive-area-light sampling for NEE, port of ``tputracer/lights.py``.
 
 Each lane picks an emitter uniformly and a uniform point on it via the
-sqrt parameterization, indexing the compact (E,)-row emitter tables.
-``Le`` is read from the material emission table, so emitter-intensity
-gradients flow.
+sqrt parameterization, indexing the compact (E,)-row emitter tables
+through ``lookup``.  ``Le`` is read from the material emission table, so
+emitter-intensity gradients flow.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from tputracer_torch import geometry as g
+from tputracer_torch.lookup import fetch, fetch_int
 
 
 def sample_light(scene, u0, u1, u2):
@@ -27,15 +28,15 @@ def sample_light(scene, u0, u1, u2):
     """
     E = scene.n_emitters
     idx = torch.clamp((u0 * E).to(torch.int64), max=E - 1)   # (N,)
-    prim = scene.emit_prim[idx]
-    mat = scene.emit_mat[idx]
-    area = scene.emit_area[idx]
+    prim = fetch_int(scene.emit_prim, idx)
+    mat = fetch_int(scene.emit_mat, idx)
+    area = fetch(scene.emit_area, idx)
     b1, b2 = g.uniform_sample_triangle(u1, u2)
-    y = (scene.emit_v0[idx]
-         + b1[:, None] * scene.emit_e1[idx]
-         + b2[:, None] * scene.emit_e2[idx])
-    n_l = scene.emit_n[idx]
-    le = scene.mat_emission[mat.long()]
+    y = (fetch(scene.emit_v0, idx)
+         + b1[:, None] * fetch(scene.emit_e1, idx)
+         + b2[:, None] * fetch(scene.emit_e2, idx))
+    n_l = fetch(scene.emit_n, idx)
+    le = fetch(scene.mat_emission, mat)
     pdf_area = 1.0 / (area * E)
     return y, n_l, le, pdf_area, prim, mat
 
