@@ -3,6 +3,7 @@
 
     python3 chip_profile.py [--parent DIR] [--settled]
     python3 chip_profile.py --sass
+    python3 chip_profile.py graphs
 
 Run from the root of a checkout, after (or without) chip_smoke.py.  It
 prints the card's name and power limit, then one JSON line per
@@ -129,6 +130,20 @@ float min/max (expand's box loop, in its K <= 4 instance), with their
 instructions, shared loads by width and opcode counts: per triangle, per
 four rows or per four boxes.
 
+``graphs`` only profiles the compiled entry points (graph_profiles):
+configs 1, 3 and 4 each rendered through api.render / api.render_bdpt,
+which replay a CUDA graph (tputracer_torch.graphs), and through the eager
+render_pt / integrators.bdpt.render_bdpt, in turns after the capture (the
+second graphed call)
+(median of 3 untraced renders each), then one traced render each: device
+events in the trace, busy time (the union of their intervals), the
+intersection or traversal kernel's device time, idle share (1 - busy /
+untraced median), the port's kernels in the trace by kernel
+(graphs.kernel_of), and the graph's kernel nodes, which the trace must
+reach (CUPTI reports a graph's kernels one by one), and its nodes of the
+port's kernels, which the trace must not exceed (``trace_complete`` says
+whether it matched them: CUPTI may drop a record).
+
 Needs a CUDA card; exits non-zero without one.
 """
 
@@ -179,7 +194,8 @@ def busy(prof, kernel="traverse_kernel"):
     return len(ks), total / 1e3, span, [(n[:60], ms) for n, ms in top], mine
 
 
-def profiled(fn, kernel="traverse_kernel"):
+def traced(fn):
+    """The torch.profiler trace of one call of fn, after one untraced."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -187,7 +203,11 @@ def profiled(fn, kernel="traverse_kernel"):
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    return busy(prof, kernel)
+    return prof
+
+
+def profiled(fn, kernel="traverse_kernel"):
+    return busy(traced(fn), kernel)
 
 
 def host_ms(fn, reps=100):
@@ -1065,6 +1085,77 @@ def dist_config3():
                           ranks[1]["untraced_render_s_all"]}), flush=True)
 
 
+def graph_profiles():
+    """Configs 1, 3 and 4 graphed and eager, in turns, then traced: a
+    graph_profile line for each render and dispatch (see the module's
+    docstring).  Raises if a graphed render's trace holds fewer device
+    events than its graph has kernel nodes, or other launches of the
+    port's kernels than its graph holds."""
+    from chip_smoke import BDPT_CFG
+    from tputracer_torch import api, graphs
+    from tputracer_torch.config import BdptConfig, RenderConfig
+    from tputracer_torch.integrators import bdpt
+    from tputracer_torch.integrators.pt import render_pt
+    from tputracer_torch.scene import cornell_box, mesh_scene
+
+    os.environ.pop("TPUTRACER_PAIRS", None)
+    cases = [
+        ("config 1", cornell_box("boxes", device="cuda"),
+         RenderConfig(width=512, height=512, spp=16, max_bounces=4),
+         api.render, render_pt, "fused_intersect"),
+        ("config 3", mesh_scene(subdiv=6, device="cuda"),
+         RenderConfig(**MESH_CFG), api.render, render_pt, "traverse_kernel"),
+        ("config 4", cornell_box("caustic", device="cuda"),
+         BdptConfig(**BDPT_CFG), api.render_bdpt, bdpt.render_bdpt,
+         "fused_intersect"),
+    ]
+    for name, sc, cfg, graphed, eager, kernel in cases:
+        graphs.clear()
+        runs = {"graphed": functools.partial(graphed, sc, cfg),
+                "eager": functools.partial(eager, sc, cfg)}
+        for fn in (runs["graphed"], *runs.values()):
+            fn()   # eager, then the capture; the eager warm-up
+        walls = {k: [] for k in runs}
+        for _ in range(3):   # in turns, so drift hits both alike
+            for k, fn in runs.items():
+                walls[k].append(cuda_ms(fn, 0, 1))
+        census = graphs.graphs()[0].census
+        kernel_nodes, nodes = census["kernel_nodes"], census["nodes"]
+        for k, fn in runs.items():
+            prof = traced(fn)
+            n, busy_ms, span_ms, top, kernel_ms = busy(prof, kernel)
+            ours = dict.fromkeys(graphs.KERNELS, 0)
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    if (name_k := graphs.kernel_of(e.name)) is not None:
+                        ours[name_k] += 1
+            wall = statistics.median(walls[k])
+            line = {"phase": "graph_profile", "config": name, "dispatch": k,
+                    "untraced_render_ms": wall, "untraced_all_ms": walls[k],
+                    "device_events": n, "busy_ms": busy_ms,
+                    "idle_share": 1.0 - busy_ms / wall,
+                    "kernel_ms": kernel_ms, "kernel_share": kernel_ms / busy_ms,
+                    "traced_span_ms": span_ms, "top": top}
+            line["traced_launches"] = ours
+            if k == "graphed":
+                line.update(graph_kernel_nodes=kernel_nodes,
+                            graph_nodes=nodes,
+                            graph_launches={q: census[q]
+                                            for q in graphs.KERNELS})
+                line["trace_complete"] = ours == line["graph_launches"]
+            print(json.dumps(line), flush=True)
+            if k == "graphed" and n < kernel_nodes:
+                raise SystemExit(
+                    f"{name}: the trace of a graphed render holds {n} device "
+                    f"events, its graph {kernel_nodes} kernels")
+            if k == "graphed" and any(
+                    ours[q] > census[q] for q in graphs.KERNELS):
+                raise SystemExit(
+                    f"{name}: the trace of a graphed render launched {ours}, "
+                    f"its graph holds {line['graph_launches']}")
+        graphs.clear()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", metavar="DIR",
@@ -1077,6 +1168,9 @@ def main():
     parser.add_argument("--sass", action="store_true",
                         help="only print the kernels' inner loops from "
                              "their SASS")
+    parser.add_argument("what", nargs="?", choices=["graphs"],
+                        help="graphs: only profile the compiled entry "
+                             "points (CUDA graphs) against eager renders")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this script profiles the card")
@@ -1091,6 +1185,9 @@ def main():
 
     card = card_line()
     print(card, flush=True)
+    if opts.what == "graphs":
+        graph_profiles()
+        return
     if opts.sass:
         from tputracer_torch.accel import pairs_cuda as pc
 

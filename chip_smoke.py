@@ -135,6 +135,38 @@ Run from the root of a checkout.  Phases, each printing one line:
      finite image with a mean in [0.15, 0.30], and the image and ray
      counts of the plain version's hooks bit for bit.  Timed as phase 4
      (the plain render once).
+ 17. graphs: the compiled entry points (tputracer_torch.graphs). Configs 1,
+     2, 3 (B2, and the pair route with TPUTRACER_PAIRS=1), 4, and the
+     progressive renders of configs 1 and 4 in passes of 4 spp, each through
+     api.render / render_bdpt / render_progressive /
+     render_bdpt_progressive, which run the first call of a key eagerly,
+     capture a CUDA graph on the second and replay it after: each of the
+     first calls (the eager one, the capture), counted, must launch 36, 52,
+     68 (68 of each kernel on the pair route), 100, 36 and 100, and by the
+     capture one graph must exist; its kernel nodes, read from the driver,
+     times its replays in a call, and a torch.profiler trace of a call must
+     hold those launches kernel by kernel (the fold kernel as often as the
+     pair test; of up to 3 traces, none may hold more and one must hold them
+     exactly, as CUPTI may drop a record); the capturing call's result and a
+     replay's must be the eager counterpart's (render_pt,
+     integrators.bdpt.render_bdpt, the progressive loop's eager passes) bit
+     for bit, BDPT's ray counts bit for bit and its image within 1e-5; a
+     material edited in place, then replaced by a tensor of the same shape,
+     must replay without a capture and give the eager bits of the edited
+     scene; a scene of other shapes must capture a new graph (on its second
+     call) in the same pool; a table that requires grad must run eagerly (at
+     1 spp) with its grad_fn and the eager bits. Timed in turns with the
+     eager counterpart (median of 3 after the capture); the first call's and
+     the capturing call's seconds, the capture, census and instantiate
+     seconds, the graph's kernel and all nodes, its pool and what the second
+     graph added to the shared pool, the copy-in (tensors, and its ms
+     between CUDA events, timed here), the peak memory. Then config 4's
+     trace_bdpt_rows through graphs.call: L_own and the ray counts bit for
+     bit.
+
+Phases 4, 7, 10, 12, 13 and 16 go through the same entry points, whose
+first call of a key runs eagerly, so their counted calls are eager ones;
+the script drops the graphs between phases (graphs.clear()).
 
 A kernel's ``ms`` times one call alone between CUDA events, the wrapper's
 host work included (cuda_ms: the median of 5 after 2 warm-ups);
@@ -2551,6 +2583,317 @@ def phase_dist(c1_img, c3_img, c3_stats, c4_img):
             p2[0]["config5"]["launches_step"]["fused_intersect"])
 
 
+# ---- phase 17: the compiled entry points (CUDA graphs) ----------------------
+
+
+def free_graphs():
+    """Drop the captured graphs and their pools between phases."""
+    from tputracer_torch import graphs
+
+    graphs.clear()
+
+
+def graph_same(kind, a, b):
+    """Whether the graphed result ``a`` is the eager ``b``: (ok, max rel
+    err).  PT: the image and ray counts bit for bit.  BDPT: its ray counts
+    bit for bit and its image within 1e-5 (rel to 1 + |b|), the splat's
+    index_add_ adding in no fixed order on the card."""
+    img_a, img_b = (torch.as_tensor(x[0]).detach().cpu() for x in (a, b))
+    rel = float(((img_a - img_b).abs() / (1.0 + img_b.abs())).max()) \
+        if img_b.numel() else 0.0
+    st_a, st_b = a[1], b[1]
+    if isinstance(st_b, dict):
+        if kind == "bdpt":
+            st_a = {k: st_a[k] for k in ("rays_closest", "rays_shadow")}
+            st_b = {k: st_b[k] for k in ("rays_closest", "rays_shadow")}
+        stats_ok = st_a.keys() == st_b.keys() and all(
+            torch.equal(st_a[k], st_b[k]) for k in st_b)
+    else:
+        stats_ok = st_a == st_b
+    same = rel < 1e-5 if kind == "bdpt" else torch.equal(img_a, img_b)
+    return same and stats_ok, rel
+
+
+def graph_paths(mesh):
+    """The paths of phase 17: (name, kind, scene, cfg, graphed entry,
+    eager counterpart, TPUTRACER_PAIRS, launches of one call, a scene of
+    other shapes).  Each entry takes (scene, cfg)."""
+    from tputracer_torch import api
+    from tputracer_torch.config import BdptConfig, RenderConfig
+    from tputracer_torch.integrators import bdpt
+    from tputracer_torch.integrators.pt import render_pt
+    from tputracer_torch.scene import cornell_box, mesh_scene
+
+    def loop(body, spp):
+        return lambda sc, cfg: api._progressive_loop(
+            sc, cfg, lambda off, step: body(sc, cfg, off, step), spp, None,
+            True, None)
+
+    none = dict(fused_intersect=0, traverse=0, pair_expand=0, pair_test=0)
+    boxes = cornell_box("boxes", device="cuda")
+    spheres = cornell_box("spheres", device="cuda")
+    caustic = cornell_box("caustic", device="cuda")
+    small_mesh = mesh_scene(subdiv=4, device="cuda")
+    c1 = RenderConfig(width=512, height=512, spp=16, max_bounces=4)
+    c3 = RenderConfig(**MESH_CFG)
+    c4 = BdptConfig(**BDPT_CFG)
+    on_route = dict(none, traverse=68, pair_expand=68, pair_test=68)
+    return [
+        ("config 1", "pt", boxes, c1, api.render, render_pt, False,
+         dict(none, fused_intersect=36), spheres),
+        ("config 2", "pt", spheres, RenderConfig(**SPHERES_CFG), api.render,
+         render_pt, False, dict(none, fused_intersect=52), boxes),
+        ("config 3", "pt", mesh, c3, api.render, render_pt, False,
+         dict(none, traverse=68), small_mesh),
+        ("config 3, pair route", "pt", mesh, c3, api.render, render_pt, True,
+         on_route, small_mesh),
+        ("config 4", "bdpt", caustic, c4, api.render_bdpt, bdpt.render_bdpt,
+         False, dict(none, fused_intersect=100), boxes),
+        ("config 1, progressive in passes of 4", "pt", boxes, c1,
+         lambda sc, cfg: api.render_progressive(sc, cfg, spp_per_pass=4),
+         loop(api._pt_pass, 4), False, dict(none, fused_intersect=36),
+         spheres),
+        ("config 4, progressive in passes of 4", "bdpt", caustic, c4,
+         lambda sc, cfg: api.render_bdpt_progressive(sc, cfg,
+                                                     spp_per_pass=4),
+         loop(api._bdpt_pass, 4), False, dict(none, fused_intersect=100),
+         boxes),
+    ]
+
+
+# the launch counters' names for graphs.KERNELS' kernels
+COUNTER_OF = {"fused_intersect_kernel": "fused_intersect",
+              "traverse_kernel": "traverse", "expand_kernel": "pair_expand",
+              "pairtest_kernel": "pair_test"}
+
+
+def by_counter(kernels):
+    """graphs.KERNELS' counts renamed to the launch counters' names; the
+    fold kernel must run as often as the pair test."""
+    check(kernels["fold_kernel"] == kernels["pairtest_kernel"],
+          f"fold kernels {kernels['fold_kernel']}, pair tests "
+          f"{kernels['pairtest_kernel']}")
+    return {c: kernels[k] for k, c in COUNTER_OF.items()}
+
+
+def traced_launches(fn, want, name, tries=3):
+    """The wrappers' kernels (graphs.KERNELS, by the launch counters'
+    names) and all device events in torch.profiler traces of calls of
+    fn, until one holds exactly ``want`` (at most ``tries``).  A trace
+    may drop a kernel's record (CUPTI's buffers), never add one: every
+    trace must hold at most ``want`` of each kernel, and one exactly
+    ``want``.  Returns [(counts, device events)] of each trace."""
+    from tputracer_torch import graphs
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    runs = []
+    while len(runs) < tries and (not runs or runs[-1][0] != want):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out, events = dict.fromkeys(graphs.KERNELS, 0), 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                events += 1
+                k = graphs.kernel_of(e.name)
+                if k is not None:
+                    out[k] += 1
+        runs.append((by_counter(out), events))
+        check(all(runs[-1][0][k] <= n for k, n in want.items()),
+              f"{name}: a traced call ran {runs[-1][0]}, want {want}")
+    check(runs[-1][0] == want, f"{name}: traced calls ran {runs}, want "
+                               f"{want}")
+    return runs
+
+
+def until_captured(fn, want, name):
+    """Calls of fn, each counted (it must launch the kernels ``want``
+    times), until one has captured a graph (at most two: a key's first
+    call runs eagerly, its second captures); returns (the capturing
+    call's result, the first call's seconds, the capturing call's)."""
+    from tputracer_torch import graphs
+
+    captures, secs = graphs.CAPTURES, []
+    while graphs.CAPTURES == captures and len(secs) < 2:
+        t0 = time.perf_counter()
+        out, _ = counted(fn, want, name)
+        secs.append(time.perf_counter() - t0)
+    check(graphs.CAPTURES == captures + 1,
+          f"{name}: {graphs.CAPTURES - captures} captures, want 1")
+    return out, secs[0], secs[-1]
+
+
+def graph_case(name, kind, base, cfg, entry, eager, pairs_on, want, other):
+    """One path of phase 17: the first call and the capture, counted; the
+    graph's kernel nodes and a traced replay's kernels against the
+    counts; the eager counterpart's bits; the two in turns, the median
+    of 3; a material edited in place, then replaced, without a new
+    capture; a scene of other shapes, captured anew; a table that
+    requires grad, eager.  Returns the phase line's fields."""
+    import dataclasses
+
+    from tputracer_torch import graphs
+
+    before = os.environ.get("TPUTRACER_PAIRS")
+    if pairs_on:
+        os.environ["TPUTRACER_PAIRS"] = "1"
+    else:
+        os.environ.pop("TPUTRACER_PAIRS", None)
+    try:
+        graphs.clear()
+        # the caller's scene: its own albedo, edited in place below
+        sc = dataclasses.replace(base, mat_albedo=base.mat_albedo.clone())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        captures = graphs.CAPTURES
+        out, first_s, capture_call_s = until_captured(
+            lambda: entry(sc, cfg), want, name)
+        peak = torch.cuda.max_memory_allocated()
+        g = graphs.graphs()[0]
+        info = dict(g.info)
+        copies, replays = graphs.COPIES, g.replays
+        entry(sc, cfg)
+        # a progressive render replays its pass's graph once a pass
+        copies, replays = graphs.COPIES - copies, g.replays - replays
+        nodes = {k: n * replays for k, n in by_counter(g.census).items()}
+        check(nodes == want, f"{name}: the graph's kernel nodes {g.census} "
+                             f"x {replays} replays a call, want {want}")
+        traced = traced_launches(lambda: entry(sc, cfg), want, name)
+        src = [x.clone() for x in g.inputs]
+        copy_ms = cuda_ms(lambda: graphs.copy_in(g.scene, sc, g.inputs, src),
+                          1, 5)
+        ref = eager(sc, cfg)
+        ok, rel = graph_same(kind, out, ref)
+        check(ok, f"{name}: the capturing call's result is not the eager "
+                  f"one's (rel {rel})")
+        graph_s, eager_s = [], []
+        for _ in range(3):   # in turns, so drift hits both alike
+            graph_s.append(cuda_ms(lambda: entry(sc, cfg), 0, 1) / 1e3)
+            eager_s.append(cuda_ms(lambda: eager(sc, cfg), 0, 1) / 1e3)
+        ok, rel_r = graph_same(kind, entry(sc, cfg), ref)
+        check(ok, f"{name}: a replay differs from the eager result "
+                  f"(rel {rel_r})")
+
+        # edits: in place, then a new tensor of the same shape
+        sc.mat_albedo.mul_(0.8)
+        replaced = dataclasses.replace(sc, mat_albedo=base.mat_albedo * 0.6)
+        edits = []
+        for edited in (sc, replaced):
+            ok, rel_e = graph_same(kind, entry(edited, cfg),
+                                   eager(edited, cfg))
+            check(ok, f"{name}: an edited scene's graphed result differs "
+                      f"from its eager one (rel {rel_e})")
+            edits.append(rel_e)
+        ok, _ = graph_same(kind, entry(replaced, cfg), ref)
+        check(not ok, f"{name}: the edit did not change the result")
+        check(graphs.CAPTURES == captures + 1,
+              f"{name}: an edit captured again")
+
+        until_captured(lambda: entry(other, cfg),
+                       launch_counts_of(lambda: eager(other, cfg)), name)
+        check(len(graphs.graphs()) == 2,
+              f"{name}: {len(graphs.graphs())} graphs, want 2")
+        pool_second = graphs.graphs()[1].info["pool_bytes"]
+        grad_fn = None
+        if "progressive" not in name:   # a film on the host has no graph
+            # at 1 spp: eager with autograd keeps every bounce's tensors
+            one = cfg.with_(spp=1)
+            leaf = dataclasses.replace(
+                base, mat_albedo=base.mat_albedo.clone().requires_grad_())
+            with torch.enable_grad():
+                img_g, st_g = entry(leaf, one)
+            grad_fn = type(img_g.grad_fn).__name__
+            check(img_g.grad_fn is not None,
+                  f"{name}: a scene that requires grad lost its grad_fn")
+            check(graphs.CAPTURES == captures + 2,
+                  f"{name}: a call with grad captured a graph")
+            with torch.no_grad():
+                ok, _ = graph_same(kind, (img_g.detach(), st_g),
+                                   eager(leaf, one))
+            check(ok, f"{name}: with grad, not the eager bits")
+    finally:
+        if before is None:
+            os.environ.pop("TPUTRACER_PAIRS", None)
+        else:
+            os.environ["TPUTRACER_PAIRS"] = before
+        graphs.clear()
+    render_s, eager_render_s = (statistics.median(graph_s),
+                                statistics.median(eager_s))
+    return dict(config=name, launches=want, traced_call=traced,
+                replays_a_call=replays,
+                first_call_s=first_s, capture_call_s=capture_call_s,
+                capture_s=info["capture_s"], census_s=info["census_s"],
+                instantiate_s=info["instantiate_s"],
+                kernel_nodes=g.census["kernel_nodes"],
+                graph_nodes=g.census["nodes"],
+                pool_gb=info["pool_bytes"] / 1e9,
+                pool_gb_second_graph=pool_second / 1e9,
+                copies_a_call=copies, copy_in_ms=copy_ms,
+                peak_mem_gb=peak / 1e9, max_rel_err=max(rel, rel_r),
+                edits_max_rel_err=max(edits), grad_fn=grad_fn,
+                render_s=render_s, render_s_all=graph_s,
+                eager_render_s=eager_render_s, eager_render_s_all=eager_s,
+                eager_over_graphed=eager_render_s / render_s)
+
+
+def launch_counts_of(fn):
+    """The kernels' launches in one call of fn, as the counters read."""
+    zero_counts()
+    fn()
+    torch.cuda.synchronize()
+    return launch_counts()
+
+
+def bdpt_rows_bits():
+    """Config 4's trace_bdpt_rows (every chunk of the render) through
+    graphs.call against the eager call: L_own and the ray counts bit for
+    bit, the splat within 1e-5."""
+    from tputracer_torch import graphs
+    from tputracer_torch.config import BdptConfig
+    from tputracer_torch.integrators.bdpt import trace_bdpt_rows
+    from tputracer_torch.scene import cornell_box
+
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(**BDPT_CFG)
+
+    def rows(s):
+        uids = torch.arange(cfg.width * cfg.height * cfg.spp,
+                            dtype=torch.int64, device=s.device)
+        return trace_bdpt_rows(s, uids, cfg)
+
+    try:
+        L_e, sp_e, st_e = rows(sc)
+        for _ in range(3):   # eager on the capture stream, capture, replay
+            L_g, sp_g, st_g = graphs.call("trace_bdpt_rows", rows, sc, cfg)
+            check(torch.equal(L_g, L_e), "config 4: the graphed L_own is "
+                                         "not the eager one, bit for bit")
+            check(all(torch.equal(st_g[k], st_e[k]) for k in st_e),
+                  "config 4: the graphed ray counts differ")
+            rel = float(((sp_g - sp_e).abs() / (1.0 + sp_e.abs())).max())
+            check(rel < 1e-5, f"config 4: graphed splat off by {rel}")
+    finally:
+        graphs.clear()
+    return rel
+
+
+def phase_graphs(mesh):
+    """Phase 17: each render path through its compiled entry point (a CUDA
+    graph) and its eager counterpart, in turns (graph_case)."""
+    start = time.perf_counter()
+    results = []
+    for path in graph_paths(mesh):
+        res = graph_case(*path)
+        emit("graphs", **res)
+        results.append(res)
+    splat_err = bdpt_rows_bits()
+    emit("graphs", config="config 4, trace_bdpt_rows", l_own="bit for bit",
+         splat_max_rel_err=splat_err,
+         seconds=time.perf_counter() - start)
+    return results
+
+
 def main():
     start = time.perf_counter()
     phase_device()
@@ -2559,19 +2902,28 @@ def main():
     mesh = phase_build()
     results, max_abs = phase_kernel()
     launches, c1_img = phase_render()
+    free_graphs()
     phase_parity()
     t_results, t_max_abs = phase_traverse(mesh)
     t_launches, mesh_img, mesh_stats = phase_mesh_render(mesh)
+    free_graphs()
     phase_mesh_parity()
     p_results = phase_pairs(mesh)
     p_launches = phase_pairs_render(mesh, mesh_img)
+    free_graphs()
     phase_bdpt_kernel()
     b_launches, bdpt_img = phase_bdpt_render()
+    free_graphs()
     phase_progressive(bdpt_img)
+    free_graphs()
     fit_step, fit_step_remat = phase_fit()
+    free_graphs()
     dp1, tiled3, dp4, ring4, dp5 = phase_dist(c1_img, mesh_img, mesh_stats,
                                               bdpt_img.cpu().numpy())
+    free_graphs()
     spheres_launches = phase_spheres()
+    free_graphs()
+    phase_graphs(mesh)
     emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls

@@ -6,8 +6,11 @@ pair-test kernels (csrc/pairs.cu) must agree bit for bit with their plain
 torch versions, and renders through them with renders through the plain
 versions (or, for the pair route, with the default route); BDPT too, its
 per-path radiance bit for bit and its splat film at float tolerance;
-gradients and fits (config 5) too, bit for bit.  The ray sets are
-chip_smoke.py's.
+gradients and fits (config 5) too, bit for bit; the compiled entry
+points' CUDA graphs (graphs.py, ``-k graph``) against the eager renders,
+bit for bit (BDPT's splat at float tolerance), edits seen without a new
+capture, replays from other streams, and the launch counters after one
+call.  The ray sets are chip_smoke.py's.
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -664,3 +667,202 @@ def test_cuda_dist_nccl_refuses_two_ranks_on_one_card(tmp_path):
                                   backend="nccl"):
         assert rc != 0
         assert "share one" in err and "gloo" in err, err[-3000:]
+
+
+# ---- the compiled entry points: CUDA graphs (graphs.py) ---------------------
+
+GRAPH_CASES = {
+    "boxes": ("boxes", RenderConfig(width=64, height=64, spp=4,
+                                    max_bounces=4, chunk_size=1 << 13)),
+    "spheres": ("spheres", RenderConfig(width=32, height=32, spp=8,
+                                        max_bounces=6, rr_start=3,
+                                        chunk_size=1 << 12)),
+    "mesh": ("mesh", RenderConfig(width=32, height=32, spp=4, max_bounces=8,
+                                  rr_start=3)),
+    "mesh pairs": ("mesh", RenderConfig(width=32, height=32, spp=4,
+                                        max_bounces=8, rr_start=3)),
+}
+
+
+def graph_scene(name):
+    if name == "mesh":
+        return mesh_scene(subdiv=4, device="cuda")
+    return cornell_box(name, device="cuda")
+
+
+def counted_call(fn):
+    """(fn()'s result, the launches it added to each kernel's counter)."""
+    from chip_smoke import launch_counts
+
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graph_render_matches_eager(case, monkeypatch):
+    """api.render runs its first call eagerly, captures one graph on its
+    second and replays it after: every call gives the eager render's
+    image and ray counts bit for bit (on the pair route, replays rely on
+    the fold keys being all ones again), the graph's kernel nodes are one
+    render's launches, and the launch counters after a call read one
+    render's launches, whether it ran eagerly, captured or replayed."""
+    from chip_smoke import by_counter
+    from tputracer_torch import graphs
+    from tputracer_torch.api import render
+
+    need_card()
+    graphs.clear()
+    if case == "mesh pairs":
+        monkeypatch.setenv("TPUTRACER_PAIRS", "1")
+    scene, cfg = GRAPH_CASES[case]
+    sc = graph_scene(scene)
+    captures = graphs.CAPTURES
+    (img_e, st_e), want = counted_call(lambda: render_pt(sc, cfg))
+    assert sum(want.values()) > 0
+    for call in range(4):
+        (img, st), launches = counted_call(lambda: render(sc, cfg))
+        assert launches == want, (call, launches, want)
+        assert graphs.CAPTURES == captures + min(call, 1)
+        assert torch.equal(img, img_e), call
+        assert all(torch.equal(st[k], st_e[k]) for k in st_e), call
+    assert graphs.graphs()[0].replays == 3
+    assert by_counter(graphs.graphs()[0].census) == want
+    assert float(img.mean()) > 0.1
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_graph_bdpt_matches_eager():
+    """render_bdpt through its graph: the eager ray counts bit for bit,
+    the image within the splat's float tolerance (index_add_ adds in no
+    fixed order); trace_bdpt_rows through graphs.call: the per-path
+    radiance bit for bit."""
+    from tputracer_torch import graphs
+    from tputracer_torch.integrators import bdpt
+
+    need_card()
+    graphs.clear()
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(width=64, height=64, spp=4, max_bounces=4,
+                     chunk_size=1 << 13)
+    (img_e, st_e), want = counted_call(lambda: bdpt.render_bdpt(sc, cfg))
+    assert want["fused_intersect"] == 2 * 25
+    for _ in range(3):   # eager, the capture, a replay
+        (img, st), launches = counted_call(lambda: render_bdpt(sc, cfg))
+        assert launches == want
+        torch.testing.assert_close(img, img_e, rtol=1e-5, atol=1e-7)
+        for k in ("rays_closest", "rays_shadow"):
+            assert torch.equal(st[k], st_e[k]), k
+    L_e, sp_e, _ = bdpt_through(sc, cfg)
+    for _ in range(3):
+        L_g, sp_g, _ = graphs.call("bdpt_rows",
+                                   lambda s: bdpt_through(s, cfg), sc, cfg)
+        assert torch.equal(L_g, L_e)
+        torch.testing.assert_close(sp_g, sp_e, rtol=1e-5, atol=1e-7)
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_graph_sees_edits_without_capturing_again():
+    """A material edited in place and then replaced by a new tensor of the
+    same shape replay the same graph and give the eager render's bits of
+    the edited scene; a scene of other shapes captures a new graph (on
+    its second call); with a table that requires grad, the call runs
+    eagerly and keeps its grad_fn."""
+    import dataclasses
+
+    from tputracer_torch import graphs
+    from tputracer_torch.api import render
+
+    need_card()
+    graphs.clear()
+    base = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=4)
+    sc = dataclasses.replace(base, mat_albedo=base.mat_albedo.clone())
+    render(sc, cfg)   # eager
+    render(sc, cfg)   # the capture
+    captures = graphs.CAPTURES
+    sc.mat_albedo.mul_(0.5)
+    img, _ = render(sc, cfg)
+    assert torch.equal(img, render_pt(sc, cfg)[0])
+    sc2 = dataclasses.replace(sc, mat_albedo=base.mat_albedo * 0.25)
+    img2, _ = render(sc2, cfg)
+    assert torch.equal(img2, render_pt(sc2, cfg)[0])
+    assert not torch.equal(img, img2)
+    assert graphs.CAPTURES == captures
+    spheres = cornell_box("spheres", device="cuda")
+    render(spheres, cfg)
+    assert graphs.CAPTURES == captures
+    render(spheres, cfg)
+    assert graphs.CAPTURES == captures + 1
+    sc3 = dataclasses.replace(
+        base, mat_albedo=base.mat_albedo.clone().requires_grad_())
+    img3, _ = render(sc3, cfg)
+    assert img3.grad_fn is not None and graphs.CAPTURES == captures + 1
+    with torch.no_grad():
+        assert torch.equal(img3, render_pt(sc3, cfg)[0])
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_graph_replays_from_other_streams_match_eager():
+    """One graph called from two user streams in turns, with nothing
+    between the calls (the mesh, whose B2 ray counter the replays share):
+    every call gives the eager bits, as the replays run one at a time on
+    the capture stream."""
+    from tputracer_torch import graphs
+    from tputracer_torch.api import render
+
+    need_card()
+    graphs.clear()
+    _, cfg = GRAPH_CASES["mesh"]
+    sc = graph_scene("mesh")
+    img_e, st_e = render_pt(sc, cfg)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for s in streams * 3:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            outs.append(render(sc, cfg))
+    torch.cuda.synchronize()
+    for img, st in outs:
+        assert torch.equal(img, img_e)
+        assert all(torch.equal(st[k], st_e[k]) for k in st_e)
+    assert graphs.graphs()[0].replays == 5
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_graph_progressive_matches_eager_passes():
+    """render_progressive replays one graph for every full pass and a
+    second for the shorter last one (captured on its key's second call,
+    the next render's), with the eager passes' film bit for bit;
+    render_bdpt_progressive at the splat's float tolerance."""
+    from tputracer_torch import api, graphs
+
+    need_card()
+    graphs.clear()
+    sc = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(width=32, height=32, spp=10, max_bounces=4)
+    captures = graphs.CAPTURES
+    ref, _ = api._progressive_loop(
+        sc, cfg, lambda off, step: api._pt_pass(sc, cfg, off, step), 4, None,
+        True, None)
+    for n in (1, 2):   # passes of 4, 4, 2: the last one's key is new
+        img, done = api.render_progressive(sc, cfg, spp_per_pass=4)
+        assert done == 10 and graphs.CAPTURES == captures + n
+        assert np.array_equal(img, ref)
+    caustic = cornell_box("caustic", device="cuda")
+    bcfg = BdptConfig(width=32, height=32, spp=4, max_bounces=4)
+    img_b, _ = api.render_bdpt_progressive(caustic, bcfg, spp_per_pass=2)
+    ref_b, _ = api._progressive_loop(
+        caustic, bcfg,
+        lambda off, step: api._bdpt_pass(caustic, bcfg, off, step), 2, None,
+        True, None)
+    np.testing.assert_allclose(img_b, ref_b, rtol=1e-5, atol=1e-7)
+    assert graphs.CAPTURES == captures + 3
+    graphs.clear()

@@ -2,7 +2,9 @@
 
 A fresh interpreter refuses every import of ``jax``, ``jaxlib`` and the JAX
 package ``tputracer``, then imports tputracer_torch, builds the Cornell
-boxes scene and renders it on the CPU, renders the caustics scene with BDPT,
+boxes scene and renders it on the CPU, imports tputracer_torch.graphs (the
+compiled entry points' CUDA graphs; nothing is captured on the CPU),
+renders the caustics scene with BDPT,
 single shot and progressive, then builds a clustered mesh scene
 (with the native BVH builder and with the NumPy one) and renders that,
 then takes a gradient through tputracer_torch.lookup, takes gradients
@@ -45,6 +47,14 @@ img, stats = render(cornell_box("boxes", device="cpu"),
                     RenderConfig(width=8, height=8, spp=1), device="cpu")
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 assert float(img.mean()) > 0.0
+
+# the compiled entry points' machinery: on the CPU nothing is captured
+from tputracer_torch import graphs
+
+hash(graphs.graph_key("_render_jit", RenderConfig(width=8, height=8, spp=1),
+                      cornell_box("boxes", device="cpu")))
+assert graphs.CAPTURES == 0 and not graphs.graphs()
+graphs.clear()
 
 # BDPT, single shot and progressive
 import numpy as np

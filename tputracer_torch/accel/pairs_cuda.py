@@ -23,7 +23,9 @@ PAIRTEST_LAUNCHES = 0
 
 _LIB = None
 # the pair test's fold keys (all ones), per (device, stream): its fold
-# kernel leaves them so, and a call launches no memset
+# kernel leaves them so, and a call launches no memset (a CUDA graph's
+# replay relies on it; the graphs that captured a key tensor keep it,
+# graphs.Graph.scratch)
 _KEYS: dict = {}
 
 
@@ -112,6 +114,11 @@ def _keys(dev, stream, n):
     """The fold keys of (device, stream): at least n, all ones."""
     keys = _KEYS.get((dev.index, stream))
     if keys is None or keys.shape[0] < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"pairtest_cuda: this stream's fold keys must hold {n} "
+                f"before a CUDA graph capture (one call on the capture "
+                f"stream first), or they would live in the graph's pool")
         cap = max(n, 2 * keys.shape[0] if keys is not None else n)
         keys = torch.full((cap,), -1, dtype=torch.int64, device=dev)
         _KEYS[(dev.index, stream)] = keys

@@ -33,6 +33,7 @@ LAUNCHES = 0
 
 _FN = None
 # the kernel's ray counter, one int per (device, stream), kept between calls
+# (and by the CUDA graphs that captured it, graphs.Graph.scratch)
 _COUNTERS: dict = {}
 
 
@@ -101,6 +102,11 @@ def traverse_cuda(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n,
         key = (dev.index, stream)
         next_ray = _COUNTERS.get(key)
         if next_ray is None:   # zeroed by tpt_traverse on this stream
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "traverse_cuda: this stream's ray counter must exist "
+                    "before a CUDA graph capture (one call on the capture "
+                    "stream first), or it would live in the graph's pool")
             next_ray = _COUNTERS[key] = torch.empty((1,), dtype=i32,
                                                     device=dev)
         err = fn(o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),

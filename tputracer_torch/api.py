@@ -1,7 +1,18 @@
 """Public API: ``render`` (wavefront path tracer), ``render_bdpt``
 (bidirectional path tracer), their progressive forms with film
 checkpoints, ``render_progressive`` and ``render_bdpt_progressive``, and
-``grad_render`` (a pixel loss and its gradients)."""
+``grad_render`` (a pixel loss and its gradients).
+
+The render entry points go through the JAX package's compiled functions'
+counterparts, under their names: ``_render_jit``, ``_render_bdpt_jit``,
+``_progressive_pass_jit`` and ``_progressive_bdpt_pass_jit``.  On the card
+each runs eagerly on the first call of a config (and pass size) and scene
+layout, captures a CUDA graph on the second and replays it after
+(tputracer_torch.graphs); the scene is copied in at each replay, so
+material and light edits do not capture again.  On the CPU they run
+eagerly.  The eager functions stay reachable as
+``integrators.pt.render_pt``, ``integrators.bdpt.render_bdpt``,
+``trace_chunked`` and ``trace_bdpt_rows``."""
 
 from __future__ import annotations
 
@@ -12,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from tputracer_torch import graphs
 from tputracer_torch.config import BdptConfig, RenderConfig
 
 
@@ -27,12 +39,18 @@ def render(scene, cfg: RenderConfig | None = None, *, device=None, **kw):
     the scene there first (None keeps the scene's own device); keyword
     arguments override fields of ``cfg``.
     """
-    from tputracer_torch.integrators.pt import render_pt
-
     cfg = _with(cfg, RenderConfig, kw)
     if device is not None:
         scene = scene.to(device)
-    return render_pt(scene, cfg)
+    return _render_jit(scene, cfg)
+
+
+def _render_jit(scene, cfg):
+    """render_pt(scene, cfg) as a CUDA graph keyed on cfg (graphs.call)."""
+    from tputracer_torch.integrators.pt import render_pt
+
+    return graphs.call("_render_jit", lambda sc: render_pt(sc, cfg), scene,
+                       cfg)
 
 
 def render_bdpt(scene, cfg: BdptConfig | None = None, *, device=None, **kw):
@@ -43,17 +61,26 @@ def render_bdpt(scene, cfg: BdptConfig | None = None, *, device=None, **kw):
     as tensors on the render's device.  ``device`` and keyword arguments
     as in :func:`render`.
     """
-    from tputracer_torch.integrators.bdpt import render_bdpt as _rb
-
     cfg = _with(cfg, BdptConfig, kw)
     if device is not None:
         scene = scene.to(device)
-    return _rb(scene, cfg)
+    return _render_bdpt_jit(scene, cfg)
+
+
+def _render_bdpt_jit(scene, cfg):
+    """integrators.bdpt.render_bdpt(scene, cfg) as a CUDA graph keyed on
+    cfg (graphs.call)."""
+    from tputracer_torch.integrators.bdpt import render_bdpt as _rb
+
+    return graphs.call("_render_bdpt_jit", lambda sc: _rb(sc, cfg), scene,
+                       cfg)
 
 
 def _pass_uids(cfg, offset, step, device):
     """The uids of samples [offset, offset + step) of every pixel, pixel by
-    pixel: the global ids the single-shot render gives those samples."""
+    pixel: the global ids the single-shot render gives those samples.
+    offset is a (1,) int64 tensor on ``device`` (as JAX's, so that a graph
+    takes it as an input) or an int."""
     pix = torch.arange(cfg.width * cfg.height, dtype=torch.int64,
                        device=device)[:, None]
     return (pix * cfg.spp + offset
@@ -62,7 +89,8 @@ def _pass_uids(cfg, offset, step, device):
 
 
 def _pt_pass(scene, cfg, offset, step):
-    """Film-sum contribution (H,W,3) of one path-tracing pass, uid rows."""
+    """Film-sum contribution (H,W,3) of one path-tracing pass, uid rows:
+    _progressive_pass_jit's eager body."""
     from tputracer_torch.integrators.pt import trace_chunked
 
     L, _ = trace_chunked(scene, _pass_uids(cfg, offset, step, scene.device),
@@ -71,7 +99,8 @@ def _pt_pass(scene, cfg, offset, step):
 
 
 def _bdpt_pass(scene, cfg, offset, step):
-    """Film-sum contribution (H,W,3) of one BDPT pass, uid rows."""
+    """Film-sum contribution (H,W,3) of one BDPT pass, uid rows:
+    _progressive_bdpt_pass_jit's eager body."""
     from tputracer_torch.integrators.bdpt import trace_bdpt_rows
 
     # samples_per_pixel=step: the uids hold a slice of each pixel's samples
@@ -84,6 +113,24 @@ def _bdpt_pass(scene, cfg, offset, step):
     # its splat scaled by 1/n_pix into the same accumulator
     n_pix = cfg.width * cfg.height
     return own + splat.reshape(cfg.height, cfg.width, 3) / float(n_pix)
+
+
+def _progressive_pass_jit(scene, offset, step, cfg):
+    """_pt_pass as a CUDA graph keyed on (step, cfg), offset (1,) int64
+    copied in at each call: one graph serves every full pass."""
+    return graphs.call(
+        "_progressive_pass_jit",
+        lambda sc, off: _pt_pass(sc, cfg, off, step), scene, (step, cfg),
+        offset)
+
+
+def _progressive_bdpt_pass_jit(scene, offset, step, cfg):
+    """_bdpt_pass as a CUDA graph keyed on (step, cfg), as
+    :func:`_progressive_pass_jit`."""
+    return graphs.call(
+        "_progressive_bdpt_pass_jit",
+        lambda sc, off: _bdpt_pass(sc, cfg, off, step), scene, (step, cfg),
+        offset)
 
 
 def _ckpt_ident(scene, cfg):
@@ -118,8 +165,9 @@ def _progressive_loop(scene, cfg, pass_fn, spp_per_pass, checkpoint_path,
     """The pass/accumulate/checkpoint loop of both progressive renders.
 
     pass_fn(offset, step) -> (H,W,3) film-sum contribution of samples
-    [offset, offset + step) of every pixel, in uid-row order.  The film
-    accumulates on the host, in float32."""
+    [offset, offset + step) of every pixel, in uid-row order, offset a
+    (1,) int64 tensor on the scene's device.  The film accumulates on the
+    host, in float32."""
     ident = _ckpt_ident(scene, cfg)
     film = np.zeros((cfg.height, cfg.width, 3), np.float32)  # uid-row order
     done = 0
@@ -134,7 +182,9 @@ def _progressive_loop(scene, cfg, pass_fn, spp_per_pass, checkpoint_path,
 
     while done < cfg.spp:
         step = min(spp_per_pass, cfg.spp - done)
-        film = film + pass_fn(done, step).cpu().numpy()
+        offset = torch.full((1,), done, dtype=torch.int64,
+                            device=scene.device)
+        film = film + pass_fn(offset, step).cpu().numpy()
         done += step
         if checkpoint_path:
             np.savez(checkpoint_path, film=film, spp_done=done, ident=ident)
@@ -162,7 +212,8 @@ def render_progressive(scene, cfg: RenderConfig, spp_per_pass=4,
     if device is not None:
         scene = scene.to(device)
     return _progressive_loop(
-        scene, cfg, lambda off, step: _pt_pass(scene, cfg, off, step),
+        scene, cfg,
+        lambda off, step: _progressive_pass_jit(scene, off, step, cfg),
         spp_per_pass, checkpoint_path, resume, callback)
 
 
@@ -177,7 +228,8 @@ def render_bdpt_progressive(scene, cfg: BdptConfig, spp_per_pass=4,
     if device is not None:
         scene = scene.to(device)
     return _progressive_loop(
-        scene, cfg, lambda off, step: _bdpt_pass(scene, cfg, off, step),
+        scene, cfg,
+        lambda off, step: _progressive_bdpt_pass_jit(scene, off, step, cfg),
         spp_per_pass, checkpoint_path, resume, callback)
 
 

@@ -2,8 +2,9 @@
 
 The same field names and defaults as ``tputracer/config.py`` mean one set
 of values drives both packages (the parity tests build one config and hand
-it to each).  PyTorch runs eagerly, so nothing here is a compile key; the
-dataclass stays frozen so a config can be shared without copies.
+it to each).  As in the JAX package, a config is a static argument of the
+compiled render entry points: it is part of their CUDA graphs' key
+(tputracer_torch.graphs), so the dataclasses stay frozen and hashable.
 """
 
 from __future__ import annotations
