@@ -1,0 +1,33 @@
+"""The Cornell box with its two diffuse boxes, in [0,1]^3 (x right, y up,
+z into the box), as ``cornell_box("boxes")`` builds it: 36 triangles."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from perfbench.scenes import SceneArrays, box, materials_of, quad
+
+
+def build(config) -> SceneArrays:
+    geo = config["geometry"]
+    mat = config["material_ids"]
+    tris, mats = [], []
+
+    def add(ts, m):
+        tris.extend(ts)
+        mats.extend([m] * len(ts))
+
+    add(quad((0, 0, 0), (0, 0, 1), (1, 0, 1), (1, 0, 0)), mat["white"])
+    add(quad((0, 1, 0), (1, 1, 0), (1, 1, 1), (0, 1, 1)), mat["white"])
+    add(quad((0, 0, 1), (0, 1, 1), (1, 1, 1), (1, 0, 1)), mat["white"])
+    add(quad((1, 0, 0), (1, 0, 1), (1, 1, 1), (1, 1, 0)), mat["red"])
+    add(quad((0, 0, 0), (0, 1, 0), (0, 1, 1), (0, 0, 1)), mat["green"])
+    lx0, lx1, lz0, lz1 = geo["light_xz"]
+    ly = geo["light_y"]
+    add(quad((lx0, ly, lz0), (lx1, ly, lz0), (lx1, ly, lz1), (lx0, ly, lz1)),
+        mat["light"])
+    for lo, hi in geo["boxes"]:
+        add(box(lo, hi), mat["white"])
+    return SceneArrays(tris=np.stack(tris).astype(np.float32),
+                       tri_mat=np.asarray(mats, np.int32),
+                       materials=materials_of(config))
