@@ -50,7 +50,7 @@ split and the rays going round the ring (tputracer_torch.dist):
     untraced render (median of 3, each from a barrier to a synchronize),
     then one render with rank 0 under torch.profiler: kernels, busy
     time, idle share, the traversal kernel's device time and share, the
-    host's time in the hops (the ``ring_hop`` spans: pack, the copy to
+    host's time in the hops (the ``dist.ring_hop`` spans: the copy to
     the host, gloo's send and receive, the copy back) and the copies'
     device time.
   * dist_profile of config 5: ``python3 -c "import chip_profile as c;
@@ -60,6 +60,10 @@ split and the rays going round the ring (tputracer_torch.dist):
   * first_step: ``python3 -c "import chip_profile as c;
     c.first_step_costs()"`` (in a fresh process), a process's first Adam
     step on the card against its second.
+  * span_off_cost, span_on_cost: ``python3 -c "import chip_profile as c;
+    c.span_costs()"``, what the port's spans (tputracer_torch.trace) cost:
+    a span's host time with no profiler running, and configs 1, 3 and 5
+    traced with the spans' profiler ranges and without them, in turns.
 
 Config 3, on the 102,410-triangle mesh of BASELINE config 3
 (mesh_scene(subdiv=6)) and 2^16 random rays from inside its room
@@ -166,9 +170,9 @@ from chip_smoke import (MESH_CFG, N_CHUNK, N_RAYS, card_line, cuda_ms,
                         mesh_camera_rays, room_rays)
 
 
-# record_function spans of the port, which the trace also shows on the
-# card's timeline; they are not kernels
-ANNOTATIONS = ("ring_hop",)
+# the port's spans (tputracer_torch.trace), record_function ranges that
+# the trace also shows on the card's timeline; they are not kernels
+ANNOTATIONS = "tputracer."
 
 
 def busy(prof, kernel="traverse_kernel"):
@@ -177,7 +181,7 @@ def busy(prof, kernel="traverse_kernel"):
     ks = sorted((e.time_range.start, e.time_range.end, e.name)
                 for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.name not in ANNOTATIONS)
+                and not e.name.startswith(ANNOTATIONS))
     total, end = 0.0, None
     by_name = {}
     for s, e, name in ks:
@@ -240,7 +244,8 @@ def per_call(fn, reps=20):
     n, busy_ms, span_ms, _, _ = busy(prof)
     launches, total = {}, {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(ANNOTATIONS)):
             name = e.name[:60]
             launches[name] = launches.get(name, 0) + 1
             total[name] = total.get(name, 0.0) + (e.time_range.end
@@ -952,7 +957,7 @@ def rank_dist_config3(mesh, refs):
         run()
         torch.cuda.synchronize()
     n, busy_ms, span_ms, top, walk_ms = busy(prof)
-    hops = [e for e in prof.events() if e.name == "ring_hop"
+    hops = [e for e in prof.events() if e.name == "tputracer.dist.ring_hop"
             and e.device_type == torch.autograd.DeviceType.CPU]
     copies = sum((e.time_range.end - e.time_range.start) / 1e3
                  for e in prof.events()
@@ -1083,6 +1088,90 @@ def dist_config3():
                       "backend": "gloo, one card", **ranks[0],
                       "rank1_untraced_render_s_all":
                           ranks[1]["untraced_render_s_all"]}), flush=True)
+
+
+def span_costs(n=100_000, reps=5, units=6, turns=3):
+    """The cost of the port's spans (tputracer_torch.trace).  Off: with no
+    profiler running, ``n`` spans each timed on their own, the median
+    less the median of an empty call timed alike, ``reps`` times (a
+    span_off_cost line each).  On: under torch.profiler, ``units`` frames
+    of config 1 and of config 3 through their graphs and ``units`` chains
+    of FIT_K config-5 fit steps, each timed from its start to its result
+    on the host, with the spans' ranges and without them (the spans then
+    record as if no profiler ran), in turns, ``turns`` times each (a
+    span_on_cost line each: the median unit's ms of each side)."""
+    from chip_smoke import FIT_CFG, FIT_K, FIT_LR, fit_start
+    from tputracer_torch import api, fit, graphs, trace
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.scene import cornell_box, mesh_scene
+
+    clock = time.perf_counter_ns
+
+    def timed(body):
+        ts = []
+        for _ in range(n):
+            t = clock()
+            body()
+            ts.append(clock() - t)
+        return statistics.median(ts)
+
+    def one_span():
+        with trace.span("span_cost"):
+            pass
+
+    def empty():
+        pass
+
+    for rep in range(reps):
+        base = timed(empty)
+        per = timed(one_span)
+        print(json.dumps({"phase": "span_off_cost", "rep": rep, "n": n,
+                          "span_ns": per - base, "timer_ns": base}),
+              flush=True)
+        trace.reset()
+
+    boxes = cornell_box("boxes", device="cuda")
+    box_cfg = RenderConfig(width=512, height=512, spp=16, max_bounces=4,
+                           rr_start=3, chunk_size=1 << 20)
+    mesh = mesh_scene(subdiv=6, device="cuda")
+    mesh_cfg = RenderConfig(**MESH_CFG)
+    fit_cfg = RenderConfig(**FIT_CFG)
+    with torch.no_grad():
+        target = api.render(boxes, fit_cfg)[0].clone()
+    params = {k: v.clone().requires_grad_()
+              for k, v in fit_start(boxes).items()}
+    opt = fit._adam(list(params.values()), FIT_LR)
+    cases = {
+        "config 1 frame": lambda: api.render(boxes, box_cfg)[0].cpu(),
+        "config 3 frame": lambda: api.render(mesh, mesh_cfg)[0].cpu(),
+        "config 5 chain": lambda: fit._fit_chain_single(
+            boxes, params, target, fit_cfg, opt, FIT_K).tolist()}
+    real, off = trace._profiler, SimpleNamespace(_is_profiler_enabled=False)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for name, unit in cases.items():
+        for _ in range(3):   # eager, the capture, a replay; the fit warm
+            unit()
+        sides = {"ranges": [], "no_ranges": []}
+        try:
+            for _ in range(turns):
+                for side in sides:
+                    trace._profiler = real if side == "ranges" else off
+                    with torch.profiler.profile(activities=acts):
+                        for _ in range(units):
+                            t = time.perf_counter()
+                            unit()
+                            sides[side].append(1e3 * (time.perf_counter()
+                                                      - t))
+        finally:
+            trace._profiler = real
+        ms = {k: statistics.median(v) for k, v in sides.items()}
+        print(json.dumps({"phase": "span_on_cost", "case": name,
+                          "units": units * turns, "median_ms": ms,
+                          "ranges_over_none": ms["ranges"]
+                          / ms["no_ranges"] - 1.0, "all_ms": sides}),
+              flush=True)
+    graphs.clear()
 
 
 def graph_profiles():

@@ -322,6 +322,30 @@ def phase_device():
     return card
 
 
+def build_seconds(source):
+    """Seconds of the last load of ``csrc/<source>`` that ran nvcc (its
+    ``build.<source>`` span), or None if it came from the cache."""
+    from tputracer_torch import trace
+
+    built = [r for r in trace.records(f"build.{source}")
+             if r.counts.get("compiled")]
+    return built[-1].ms / 1e3 if built else None
+
+
+def capture_seconds():
+    """The last graph capture's seconds, whole and its census's and
+    instantiation's, from their spans' records."""
+    from tputracer_torch import trace
+
+    cap = trace.records("graphs.capture")[-1]
+    out = {"capture_s": cap.ms / 1e3}
+    for part in ("census", "instantiate"):
+        out[f"{part}_s"] = next(r.ms / 1e3
+                                for r in trace.records(f"graphs.{part}")
+                                if r.parent == cap.id)
+    return out
+
+
 def phase_build():
     from tputracer_torch import cuda_build
     from tputracer_torch.accel import bvh
@@ -343,7 +367,7 @@ def phase_build():
     t0 = time.perf_counter()
     mesh = mesh_scene(subdiv=6, device="cuda")
     emit("build", seconds=round(nvcc_s, 3),
-         nvcc_seconds={k: cuda_build.BUILD_SECONDS.get(k) for k in sources},
+         nvcc_seconds={k: build_seconds(k) for k in sources},
          ptxas=ptxas, bvh_builder=bvh.LAST_BUILDER, n_tris=mesh.n_tris,
          n_clusters=mesh.n_clusters, leaf_size=mesh.leaf_size,
          scene_seconds=round(time.perf_counter() - t0, 3))
@@ -2752,7 +2776,7 @@ def graph_case(name, kind, base, cfg, entry, eager, pairs_on, want, other):
             lambda: entry(sc, cfg), want, name)
         peak = torch.cuda.max_memory_allocated()
         g = graphs.graphs()[0]
-        info = dict(g.info)
+        info = dict(g.info, **capture_seconds())
         copies, replays = graphs.COPIES, g.replays
         entry(sc, cfg)
         # a progressive render replays its pass's graph once a pass

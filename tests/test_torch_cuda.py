@@ -10,7 +10,9 @@ gradients and fits (config 5) too, bit for bit; the compiled entry
 points' CUDA graphs (graphs.py, ``-k graph``) against the eager renders,
 bit for bit (BDPT's splat at float tolerance), edits seen without a new
 capture, replays from other streams, and the launch counters after one
-call.  The ray sets are chip_smoke.py's.
+call; their spans: a replay's copy-in bytes, its device times from the
+graph's event nodes, and the kernel census with those nodes in the
+graph.  The ray sets are chip_smoke.py's.
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -865,4 +867,109 @@ def test_graph_progressive_matches_eager_passes():
         True, None)
     np.testing.assert_allclose(img_b, ref_b, rtol=1e-5, atol=1e-7)
     assert graphs.CAPTURES == captures + 3
+    graphs.clear()
+
+
+# ---- the graphs' spans and replay timing (tputracer_torch.trace) -----------
+
+@pytest.mark.cuda
+def test_graph_copy_in_counts_the_static_inputs_bytes():
+    """Each replay's ``graphs.copy_in`` record counts the tensors copied
+    (every scene and camera tensor, then the inputs) and their bytes: the
+    sum of their nbytes."""
+    from tputracer_torch import api, graphs, trace
+
+    need_card()
+    graphs.clear()
+    trace.reset()
+    sc = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(width=32, height=32, spp=8, max_bounces=4)
+    off = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    for _ in range(3):   # eager, the capture and its replay, a replay
+        api._progressive_pass_jit(sc, off, 4, cfg)
+    torch.cuda.synchronize()
+    tensors = graphs.scene_tensors(sc) + [off]
+    recs = trace.records("graphs.copy_in")
+    assert len(recs) == 2
+    for rec in recs:
+        assert rec.counts == {"tensors": len(tensors),
+                              "bytes": sum(t.nbytes for t in tensors)}
+    assert graphs.graphs()[0].in_bytes == sum(t.nbytes for t in tensors)
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_graph_replays_are_timed_on_the_device():
+    """Each replay's ``graphs.launch`` record gets its device times from
+    the graph's event nodes: the wait before the first node and the
+    replay, both >= 0, the replay no longer than the call's wall time."""
+    import time
+
+    from tputracer_torch import graphs, trace
+    from tputracer_torch.api import render
+
+    need_card()
+    graphs.clear()
+    trace.reset()
+    scene, cfg = GRAPH_CASES["boxes"]
+    sc = graph_scene(scene)
+    render(sc, cfg)          # eager
+    render(sc, cfg)          # the capture, then its replay
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        render(sc, cfg)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    recs = trace.records("graphs.launch")
+    assert len(recs) == 5
+    for rec in recs:
+        assert rec.device is not None and "untimed" not in rec.counts
+        assert rec.device["wait_ms"] >= 0 and rec.device["replay_ms"] > 0
+    for rec, wall in zip(recs[1:], walls):
+        assert rec.device["replay_ms"] <= wall
+    calls = trace.records("graphs.call")
+    assert len(calls) == 6
+    assert all(r.root == c.id for r, c in zip(recs, calls[1:]))
+    graphs.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["boxes", "mesh"])
+def test_graph_event_nodes_leave_the_kernel_census(case):
+    """The graph's two event-record nodes are no kernels: its kernel
+    nodes are what the eager render launches (the launch counters) and
+    what a traced replay runs, kernel for kernel."""
+    from chip_smoke import by_counter
+    from tputracer_torch import graphs
+    from tputracer_torch.api import render
+
+    need_card()
+    graphs.clear()
+    scene, cfg = GRAPH_CASES[case]
+    sc = graph_scene(scene)
+    _, want = counted_call(lambda: render_pt(sc, cfg))
+    render(sc, cfg)
+    render(sc, cfg)
+    census = graphs.graphs()[0].census
+    assert census["event_nodes"] == 2
+    assert by_counter(census) == want
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    counts = []
+    for _ in range(3):   # CUPTI can drop a record
+        with torch.profiler.profile(activities=acts) as prof:
+            render(sc, cfg)
+            torch.cuda.synchronize()
+        host = {e.name for e in prof.events()
+                if e.device_type != torch.autograd.DeviceType.CUDA}
+        counts.append(sum(
+            1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in host
+            and not e.name.startswith(("Memcpy", "Memset"))))
+        if counts[-1] == census["kernel_nodes"]:
+            break
+    assert census["kernel_nodes"] in counts, counts
     graphs.clear()

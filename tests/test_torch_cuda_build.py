@@ -1,6 +1,7 @@
 """tputracer_torch.cuda_build on the CPU, with a fake compiler in nvcc's
 place: builders that start together compile a library once, to a
-temporary name renamed into place, and all load that one file.
+temporary name renamed into place, and all load that one file; each load
+is a ``build.<source>`` span that says whether nvcc ran.
 """
 
 import ctypes
@@ -86,3 +87,20 @@ def test_failed_build_leaves_no_library(fake_build, monkeypatch):
     so = cuda_build.library_path("fake.cu")
     assert not so.exists()
     assert not [p for p in os.listdir(so.parent) if p.endswith(".tmp")]
+
+
+def test_each_load_is_a_build_span_that_counts_a_compile(fake_build):
+    """Each load_library is a ``build.<source>`` span: ``compiled`` 1 when
+    nvcc ran, 0 when the library came from the cache; the compile's time
+    lies inside the first."""
+    from tputracer_torch import trace
+
+    trace.reset()
+    cuda_build.load_library("fake.cu")
+    cuda_build.load_library("fake.cu")
+    first, second = trace.records("build.fake.cu")
+    assert first.counts == {"compiled": 1} and first.parent == 0
+    assert second.counts == {"compiled": 0}
+    assert first.ms >= 300      # the fake compiler sleeps 0.3 s
+    assert not hasattr(cuda_build, "BUILD_SECONDS")
+    trace.reset()

@@ -25,6 +25,7 @@ import torch
 
 from tputracer_torch import graphs
 from tputracer_torch.config import BdptConfig, RenderConfig
+from tputracer_torch.trace import span
 
 
 def _with(cfg, default, kw):
@@ -242,9 +243,11 @@ def _loss_and_grads(render_fn, scene, params, target, cfg):
     ``render_fn(scene with params, cfg)`` against target: a detached 0-d
     tensor and a dict with the keys of ``params``, whose leaf tensors
     require grad."""
-    img, _ = render_fn(dataclasses.replace(scene, **params), cfg)
-    loss = _loss_l2(img, target)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    with span("grad.forward"):
+        img, _ = render_fn(dataclasses.replace(scene, **params), cfg)
+        loss = _loss_l2(img, target)
+    with span("grad.backward"):
+        grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), dict(zip(params, grads))
 
 

@@ -24,6 +24,7 @@ import torch
 from tputracer_torch import geometry as g
 from tputracer_torch.lookup import fetch, fetch_int
 from tputracer_torch.scene.types import DIFFUSE, GLASS, MIRROR
+from tputracer_torch.trace import span
 
 INV_PI = 1.0 / math.pi
 
@@ -105,41 +106,45 @@ def sample_bsdf(scene, mat, n, wo, u0, u1, u2, transport_radiance=True,
     w_m = albedo
 
     # --- glass: Fresnel-weighted reflect-or-refract ---
-    entering = g.dot(wo, n) > 0.0
-    ior = fetch(scene.mat_ior, mat)
-    eta_i = torch.where(entering, 1.0, ior)
-    eta_t = torch.where(entering, ior, 1.0)
-    cos_i = torch.abs(g.dot(wo, ns))
-    fr, cos_t, tir = _fresnel_dielectric(cos_i, eta_i, eta_t)
-    if decision_scene is None:
-        fr_dec, cos_t_dec, tir_dec = fr, cos_t, tir
-        eta_dec = eta_i / eta_t
-    else:
-        ior_d = fetch(dsc.mat_ior, mat)
-        ei_d = torch.where(entering, 1.0, ior_d)
-        et_d = torch.where(entering, ior_d, 1.0)
-        fr_dec, cos_t_dec, tir_dec = _fresnel_dielectric(cos_i, ei_d, et_d)
-        eta_dec = ei_d / et_d
-    pick_reflect = (u0 < fr_dec.detach()) | tir_dec
-    eta = eta_i / eta_t
-    wi_refl = 2.0 * g.dotk(wo, ns) * ns - wo
-    wi_refr = g.normalize(
-        -eta_dec[:, None] * wo + (eta_dec * cos_i - cos_t_dec)[:, None] * ns)
-    wi_g = torch.where(pick_reflect[:, None], wi_refl, wi_refr)
-    # detached-pdf ratio: forward == 1, backward keeps dF/d(ior)
-    pr = torch.clamp(fr_dec, 1e-4, 1.0).detach()
-    pt = torch.clamp(1.0 - fr_dec, 1e-4, 1.0).detach()
-    scale_refr = eta**2 if transport_radiance else 1.0   # radiance transport
-    w_g_refl = (fr / pr)[:, None] * albedo
-    w_g_refr = ((1.0 - fr) / pt * scale_refr)[:, None] * albedo
-    w_g = torch.where(pick_reflect[:, None], w_g_refl, w_g_refr)
+    with span("bsdf.glass"):
+        entering = g.dot(wo, n) > 0.0
+        ior = fetch(scene.mat_ior, mat)
+        eta_i = torch.where(entering, 1.0, ior)
+        eta_t = torch.where(entering, ior, 1.0)
+        cos_i = torch.abs(g.dot(wo, ns))
+        fr, cos_t, tir = _fresnel_dielectric(cos_i, eta_i, eta_t)
+        if decision_scene is None:
+            fr_dec, cos_t_dec, tir_dec = fr, cos_t, tir
+            eta_dec = eta_i / eta_t
+        else:
+            ior_d = fetch(dsc.mat_ior, mat)
+            ei_d = torch.where(entering, 1.0, ior_d)
+            et_d = torch.where(entering, ior_d, 1.0)
+            fr_dec, cos_t_dec, tir_dec = _fresnel_dielectric(cos_i, ei_d, et_d)
+            eta_dec = ei_d / et_d
+        pick_reflect = (u0 < fr_dec.detach()) | tir_dec
+        eta = eta_i / eta_t
+        wi_refl = 2.0 * g.dotk(wo, ns) * ns - wo
+        wi_refr = g.normalize(
+            -eta_dec[:, None] * wo
+            + (eta_dec * cos_i - cos_t_dec)[:, None] * ns)
+        wi_g = torch.where(pick_reflect[:, None], wi_refl, wi_refr)
+        # detached-pdf ratio: forward == 1, backward keeps dF/d(ior)
+        pr = torch.clamp(fr_dec, 1e-4, 1.0).detach()
+        pt = torch.clamp(1.0 - fr_dec, 1e-4, 1.0).detach()
+        # radiance transport
+        scale_refr = eta**2 if transport_radiance else 1.0
+        w_g_refl = (fr / pr)[:, None] * albedo
+        w_g_refr = ((1.0 - fr) / pt * scale_refr)[:, None] * albedo
+        w_g = torch.where(pick_reflect[:, None], w_g_refl, w_g_refr)
 
     # --- select by material tag ---
-    is_m = (kind == MIRROR)[:, None]
-    is_g = (kind == GLASS)[:, None]
-    wi = torch.where(is_g, wi_g, torch.where(is_m, wi_m, wi_d))
-    wi = wi.detach()                    # detached sampling: directions are data
-    weight = torch.where(is_g, w_g, torch.where(is_m, w_m, w_d))
-    pdf = torch.where(kind == DIFFUSE, pdf_d, 0.0)
-    is_delta = kind != DIFFUSE
+    with span("bsdf.select"):
+        is_m = (kind == MIRROR)[:, None]
+        is_g = (kind == GLASS)[:, None]
+        wi = torch.where(is_g, wi_g, torch.where(is_m, wi_m, wi_d))
+        wi = wi.detach()            # detached sampling: directions are data
+        weight = torch.where(is_g, w_g, torch.where(is_m, w_m, w_d))
+        pdf = torch.where(kind == DIFFUSE, pdf_d, 0.0)
+        is_delta = kind != DIFFUSE
     return wi, weight, pdf, is_delta

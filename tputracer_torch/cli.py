@@ -23,7 +23,8 @@ Renders twice (the first call builds the CUDA kernels on first use and
 warms up), times the second, writes the image (scaled by ``--exposure``)
 and prints one JSON line with the same keys as ``python -m
 tputracer.cli``.  ``--profile DIR`` writes a torch.profiler trace of the
-timed render to DIR/trace.json.
+timed render to DIR/trace.json, the port's spans (``tputracer.*``, see
+``tputracer_torch.trace``) on its host timeline over the device's ops.
 """
 
 from __future__ import annotations

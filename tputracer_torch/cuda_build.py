@@ -22,8 +22,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from tputracer_torch.trace import span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -35,10 +36,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# what the last build of each source printed (ptxas registers, spills),
-# and how long it took; empty for a library loaded from the cache
+# what the last build of each source printed (ptxas registers, spills);
+# empty for a library loaded from the cache.  How long each load took,
+# and whether nvcc ran, are the records of ``trace`` span
+# ``build.<source>`` (count ``compiled``).
 BUILD_LOG: dict[str, str] = {}
-BUILD_SECONDS: dict[str, float] = {}
 
 
 def _nvcc():
@@ -62,14 +64,16 @@ def library_path(source: str) -> Path:
 
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (if not cached) and load it."""
-    so = library_path(source)
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with open(so.with_name(f"{so.name}.lock"), "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            if not so.exists():     # else another process built it
-                _build(source, so)
-    return ctypes.CDLL(str(so))
+    with span(f"build.{source}", compiled=0) as rec:
+        so = library_path(source)
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(so.with_name(f"{so.name}.lock"), "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if not so.exists():     # else another process built it
+                    _build(source, so)
+                    rec.add(compiled=1)
+        return ctypes.CDLL(str(so))
 
 
 def _build(source, so):
@@ -77,7 +81,6 @@ def _build(source, so):
     ``so``: no process ever loads half a library."""
     src = CSRC / source
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
     try:
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
@@ -86,5 +89,4 @@ def _build(source, so):
         os.replace(tmp, so)
     finally:
         tmp.unlink(missing_ok=True)
-    BUILD_SECONDS[source] = time.perf_counter() - t0
     BUILD_LOG[source] = proc.stderr

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 
 import torch
 
@@ -39,6 +38,7 @@ from tputracer_torch.dist.mesh import (_bdpt_rows, _pt_rows, fit_step_rows,
                                        gather_image, pack, ring_shift,
                                        sum_stats, unpack)
 from tputracer_torch.lookup import fetch, fetch_int
+from tputracer_torch.trace import span
 
 _BIG = 3.0e38
 
@@ -125,8 +125,9 @@ def make_ring_backends(mesh, comm_log=None, hop_log=None):
     same bytes also cross to the host and back on each hop, explicitly
     (``mesh.ring_shift``).
     hop_log: a list; when given, each hop synchronizes the card before it
-    and after it and appends its seconds (host clock): the time in the
-    hops, without the kernels queued before them.
+    and after it and appends its seconds (its ``dist.ring_hop`` span's,
+    host clock): the time in the hops, without the kernels queued before
+    them.
     """
     P = mesh.size
 
@@ -143,15 +144,15 @@ def make_ring_backends(mesh, comm_log=None, hop_log=None):
 
     def hop(state):
         buf = pack(state)
-        if hop_log is not None and buf.is_cuda:
+        sync = hop_log is not None and buf.is_cuda
+        if sync:
             torch.cuda.synchronize(buf.device)
-        t0 = time.perf_counter()
-        with torch.profiler.record_function("ring_hop"):
+        with span("dist.ring_hop") as rec:
             out = unpack(ring_shift(buf, mesh), state)
-        if hop_log is not None:
-            if buf.is_cuda:
+            if sync:
                 torch.cuda.synchronize(buf.device)
-            hop_log.append(time.perf_counter() - t0)
+        if hop_log is not None:
+            hop_log.append(rec.ms / 1e3)
         return out
 
     def intersect_ring(scene, o, d, tmin, tmax):

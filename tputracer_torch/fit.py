@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from tputracer_torch.api import _loss_and_grads
+from tputracer_torch.trace import span, spanned
 
 DEFAULT_PARAMS = ("mat_albedo", "mat_emission")
 
@@ -85,13 +86,15 @@ def chain_steps(step_fn, scene, params, target, opt, n_steps):
     updated in place and projected after each step."""
     losses = []
     for _ in range(n_steps):
-        loss, grads = step_fn(scene, params, target)
-        for k, v in params.items():
-            v.grad = grads[k]
-        opt.step()
-        opt.zero_grad(set_to_none=True)
-        _project(params)
-        losses.append(loss)
+        with span("fit.step"):
+            loss, grads = step_fn(scene, params, target)
+            with span("fit.optimizer"):
+                for k, v in params.items():
+                    v.grad = grads[k]
+                opt.step()
+                opt.zero_grad(set_to_none=True)
+                _project(params)
+            losses.append(loss)
     return torch.stack(losses)
 
 
@@ -126,6 +129,7 @@ def _chain_for(mesh, tiled, integrator):
     return lambda sc, p, t, cfg, opt, k: fn(sc, p, t, cfg, mesh, opt, k)
 
 
+@spanned("fit.make_optimizer")
 def _adam(params_list, lr):
     return torch.optim.Adam(params_list, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                             foreach=False)

@@ -50,7 +50,15 @@ replaying that graph:
 
 CPU tensors run ``fn`` eagerly (CPU PyTorch has no graphs), and so does a
 call with gradients enabled on a scene whose tensors require them (the
-gradient entry points are not graphed).  The cache lives as long as the
+gradient entry points are not graphed).
+
+Each call is a ``graphs.call`` span (``tputracer_torch.trace``) holding
+the spans of its parts: ``graphs.key``; ``graphs.eager`` (a key's first
+call, or with the count ``ungraphed`` a call that is never graphed);
+``graphs.capture`` (count ``pool_bytes``) with ``graphs.census`` and
+``graphs.instantiate``; and of a replay ``graphs.copy_in`` (counts
+``tensors`` and ``bytes``), ``graphs.launch`` (its device times, see
+:class:`Graph`) and ``graphs.clone``.  The cache lives as long as the
 process, like jit's; :func:`clear` empties it and frees the graphs' pool.
 """
 
@@ -59,7 +67,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import re
-import time
 
 import torch
 
@@ -68,6 +75,7 @@ from tputracer_torch.accel import intersect_cuda as _ic
 from tputracer_torch.accel import pairs_cuda as _pc
 from tputracer_torch.accel import traverse_cuda as _tc
 from tputracer_torch.scene.types import CAMERA_FIELDS, TENSOR_FIELDS, Camera
+from tputracer_torch.trace import SETTLERS, span
 
 # the wrappers' kernels, by their names in csrc/, and the launch counter
 # each one's launches add to; the fold kernel runs behind every pair test,
@@ -156,8 +164,8 @@ def _driver(cu, fn, *args):
 
 def census(raw_graph):
     """The nodes of a cudaGraph_t, read with libcuda: a dict with
-    ``nodes``, ``kernel_nodes`` and the number of kernel nodes of each
-    kernel in :data:`KERNELS`."""
+    ``nodes``, ``kernel_nodes``, ``event_nodes`` (event records) and the
+    number of kernel nodes of each kernel in :data:`KERNELS`."""
     cu = ctypes.CDLL("libcuda.so.1")
     graph = ctypes.c_void_p(raw_graph)
     n = ctypes.c_size_t(0)
@@ -165,12 +173,14 @@ def census(raw_graph):
     nodes = (ctypes.c_void_p * n.value)()
     _driver(cu, "cuGraphGetNodes", graph, nodes, ctypes.byref(n))
     out = dict.fromkeys(KERNELS, 0)
-    out.update(nodes=n.value, kernel_nodes=0)
+    out.update(nodes=n.value, kernel_nodes=0, event_nodes=0)
     kind, params, name = ctypes.c_int(), _KernelNodeParams(), ctypes.c_char_p()
     names = {}   # function handle -> its entry of KERNELS, or None
     for node in nodes:
         node = ctypes.c_void_p(node)
         _driver(cu, "cuGraphNodeGetType", node, ctypes.byref(kind))
+        if kind.value == 7:                  # CU_GRAPH_NODE_TYPE_EVENT_RECORD
+            out["event_nodes"] += 1
         if kind.value != 0:                  # CU_GRAPH_NODE_TYPE_KERNEL
             continue
         out["kernel_nodes"] += 1
@@ -216,9 +226,20 @@ def _pool(device):
 
 class Graph:
     """One captured call: its static inputs, the graph, its outputs, its
-    kernels (``census``) and what its capture cost (``info``).  Made on a
-    key's second call, on the capture stream, after the first call's
-    warm-up there."""
+    kernels (``census``), its name and memory pool's growth (``info``),
+    and the events that time its replays on the device.  Made on a key's
+    second call, on the capture stream, after the first call's warm-up
+    there.
+
+    The graph's first and last nodes record the events ``begin`` and
+    ``end`` (external event nodes, not kernels); each replay records
+    ``ready`` on the stream just before it.  A replay's ``graphs.launch``
+    record gets ``wait_ms`` (ready to begin: the device, done with what
+    came before, waiting for the graph's first node) and ``replay_ms``
+    (begin to end) once the events have completed: at the next replay,
+    when records are read, or at :func:`clear`.  Nothing waits on them; a
+    replay whose events had not completed by its graph's next replay gets
+    the count ``untimed``."""
 
     def __init__(self, name, fn, scene, inputs):
         global CAPTURES
@@ -234,17 +255,20 @@ class Graph:
                 stream.synchronize()
                 torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved(dev)
-                t0 = time.perf_counter()
+                self.ready = torch.cuda.Event(enable_timing=True)
+                self.begin, self.end = (
+                    torch.cuda.Event(enable_timing=True, external=True)
+                    for _ in range(2))
                 self.graph = torch.cuda.CUDAGraph(keep_graph=True)
                 self.out = _capture(self.graph, stream, _pool(dev), name, fn,
-                                    self.scene, self.inputs)
-                t1 = time.perf_counter()
+                                    self.scene, self.inputs, self.begin,
+                                    self.end)
                 recorded = [a - b for a, b in zip(_counts(), before)]
-                self.census = census(self.graph.raw_cuda_graph())
-                t2 = time.perf_counter()
-                self.graph.instantiate()
-                torch.cuda.synchronize(dev)
-                t3 = time.perf_counter()
+                with span("graphs.census"):
+                    self.census = census(self.graph.raw_cuda_graph())
+                with span("graphs.instantiate"):
+                    self.graph.instantiate()
+                    torch.cuda.synchronize(dev)
         finally:
             _set_counts(before)
         self.launches = [self.census[k] for k in _COUNTED]
@@ -260,35 +284,73 @@ class Graph:
         # the pair test's fold keys) lives as long as the graph
         key = (dev.index, stream.cuda_stream)
         self.scratch = (_tc._COUNTERS.get(key), _pc._KEYS.get(key))
-        self.info = {"name": name, "capture_s": t1 - t0, "census_s": t2 - t1,
-                     "instantiate_s": t3 - t2,
+        self.info = {"name": name,
                      "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
+        # the bytes a replay copies in: every static input, whole
+        self.in_bytes = sum(t.nbytes for t in scene_tensors(self.scene)
+                            + list(self.inputs))
+        self.timing = None      # the last replay's record, until timed
         self.replays = 0
         CAPTURES += 1
 
     def __call__(self, scene, inputs):
         global COPIES
+        self.settle(final=True)
         caller = torch.cuda.current_stream(scene.device)
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
-            COPIES += copy_in(self.scene, scene, self.inputs, inputs)
-            self.graph.replay()
+            with span("graphs.copy_in") as rec:
+                n = copy_in(self.scene, scene, self.inputs, inputs)
+                rec.add(tensors=n, bytes=self.in_bytes)
+            COPIES += n
+            with span("graphs.launch") as self.timing:
+                self.ready.record()
+                self.graph.replay()
         caller.wait_stream(self.stream)
         self.replays += 1
         _set_counts([c + n for c, n in zip(_counts(), self.launches)])
-        return _clone(self.out)
+        with span("graphs.clone"):
+            return _clone(self.out)
+
+    def settle(self, final=False):
+        """Give the last replay's ``graphs.launch`` record its device
+        times if its events have completed; if not, and ``final``, the
+        count ``untimed``."""
+        rec = self.timing
+        if rec is None:
+            return
+        if self.end.query():
+            rec.device = {"wait_ms": self.ready.elapsed_time(self.begin),
+                          "replay_ms": self.begin.elapsed_time(self.end)}
+        elif final:
+            rec.add(untimed=1)
+        else:
+            return
+        self.timing = None
 
 
-def _capture(graph, stream, pool, name, fn, scene, inputs):
+def _settle_all():
+    for g in graphs():
+        g.settle()
+
+
+SETTLERS.append(_settle_all)
+
+
+def _capture(graph, stream, pool, name, fn, scene, inputs, begin, end):
     """fn(scene, *inputs) captured into ``graph`` on ``stream`` in
-    ``pool``; returns its outputs (the graph's static outputs).  Raises
+    ``pool``, between nodes that record the events ``begin`` and ``end``;
+    returns its outputs (the graph's static outputs).  Raises
     RuntimeError naming the first error, the op's own, if the capture
     fails."""
     first = []
     try:
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             try:
-                return fn(scene, *inputs)
+                begin.record()
+                out = fn(scene, *inputs)
+                end.record()
+                return out
             except Exception as e:
                 first.append(e)
                 raise
@@ -347,16 +409,22 @@ def call(name, fn, scene, static, *inputs):
     its second and replayed after; on CPU tensors, or with gradients
     wanted, eagerly always.  ``fn`` must depend on nothing but its
     arguments and ``static``."""
-    if scene.device.type != "cuda" or _wants_grad(scene, inputs):
-        return fn(scene, *inputs)
-    key = graph_key(name, static, scene, inputs)
-    if key not in _CACHE:
-        _CACHE[key] = None
-        return _first_call(fn, scene, inputs)
-    graph = _CACHE[key]
-    if graph is None:
-        graph = _CACHE[key] = Graph(name, fn, scene, inputs)
-    return graph(scene, inputs)
+    with span("graphs.call"):
+        if scene.device.type != "cuda" or _wants_grad(scene, inputs):
+            with span("graphs.eager", ungraphed=1):
+                return fn(scene, *inputs)
+        with span("graphs.key"):
+            key = graph_key(name, static, scene, inputs)
+        if key not in _CACHE:
+            _CACHE[key] = None
+            with span("graphs.eager"):
+                return _first_call(fn, scene, inputs)
+        graph = _CACHE[key]
+        if graph is None:
+            with span("graphs.capture") as rec:
+                graph = _CACHE[key] = Graph(name, fn, scene, inputs)
+                rec.add(pool_bytes=graph.info["pool_bytes"])
+        return graph(scene, inputs)
 
 
 def graphs():
@@ -369,6 +437,7 @@ def clear():
     counterpart)."""
     if _CACHE and torch.cuda.is_available():
         torch.cuda.synchronize()
+        _settle_all()
     _CACHE.clear()
     _POOLS.clear()
     if torch.cuda.is_available():

@@ -29,6 +29,7 @@ from tputracer_torch.accel import intersect, occluded
 from tputracer_torch.bsdf import (emitted, eval_bsdf, nee_nonspecular,
                                   pdf_bsdf, sample_bsdf)
 from tputracer_torch.lights import pdf_light_area, sample_light
+from tputracer_torch.trace import span
 
 _BIG = 3.0e38
 
@@ -84,26 +85,30 @@ def _bounce_step(scene, decision_scene, uid, carry, *, b, cfg, isect, occl):
     eps = scene.eps
 
     # dead lanes get tmax = 0, which the kernel skips without testing
-    issued = alive.sum(dtype=torch.float32)
-    hit = isect(scene, o, d, tmin=zeros1, tmax=torch.where(alive, _BIG, 0.0))
-    active = alive & hit.valid
-    n_active = active.sum(dtype=torch.float32)
+    with span("pt.intersect"):
+        issued = alive.sum(dtype=torch.float32)
+        hit = isect(scene, o, d, tmin=zeros1,
+                    tmax=torch.where(alive, _BIG, 0.0))
+        active = alive & hit.valid
+        n_active = active.sum(dtype=torch.float32)
 
     # ---- emission at the hit vertex ----
-    le = emitted(scene, hit.mat, hit.n, d)
-    if cfg.mis and b > 0:
-        pl_area, _ = pdf_light_area(scene, hit.prim)
-        cos_l = torch.abs(g.dot(hit.n, d))
-        # missed lanes carry t=_BIG whose square overflows to inf; clamp
-        # them out so no NaN reaches the (masked) backward
-        t_safe = torch.where(hit.valid, hit.t, 1.0)
-        pl_sa = pl_area * t_safe**2 / torch.clamp(cos_l, min=1e-6)
-        w_hit = torch.where(prev_delta, 1.0, _power2(prev_pdf, pl_sa))
-    else:
-        # NEE only: emitters counted at b==0 (prev_delta init) or after a
-        # delta bounce — the double-count guard
-        w_hit = prev_delta.to(torch.float32)
-    L = L + torch.where(active[:, None], thr * le * w_hit[:, None], 0.0)
+    with span("pt.emission"):
+        le = emitted(scene, hit.mat, hit.n, d)
+        if cfg.mis and b > 0:
+            pl_area, _ = pdf_light_area(scene, hit.prim)
+            cos_l = torch.abs(g.dot(hit.n, d))
+            # missed lanes carry t=_BIG whose square overflows to inf;
+            # clamp them out so no NaN reaches the (masked) backward
+            t_safe = torch.where(hit.valid, hit.t, 1.0)
+            pl_sa = pl_area * t_safe**2 / torch.clamp(cos_l, min=1e-6)
+            w_hit = torch.where(prev_delta, 1.0, _power2(prev_pdf, pl_sa))
+        else:
+            # NEE only: emitters counted at b==0 (prev_delta init) or after
+            # a delta bounce — the double-count guard
+            w_hit = prev_delta.to(torch.float32)
+        L = L + torch.where(active[:, None], thr * le * w_hit[:, None],
+                            0.0)
 
     if b == cfg.max_bounces:
         return (o, d, L, thr, alive, prev_delta, prev_pdf), \
@@ -112,58 +117,60 @@ def _bounce_step(scene, decision_scene, uid, carry, *, b, cfg, isect, occl):
     wo = -d
     ns = g.face_forward(hit.n, wo)
 
-    # ---- next-event estimation ----
+    # ---- next-event estimation: a point on a light, then its shadow ray
     ul0, ul1, ul2 = rng.uniform3(uid, rng.salt(b, rng.SLOT_LIGHT), cfg.seed)
-    y, n_l, le_l, pdf_a, _, _ = sample_light(scene, ul0, ul1, ul2)
-    to_l = y - hit.p
-    dist2 = torch.clamp(g.dot(to_l, to_l), min=1e-12)
-    dist = torch.sqrt(dist2)
-    wi_l = to_l / dist[:, None]
-    cos_p = g.dot(wi_l, ns)
-    cos_l = g.dot(n_l, -wi_l)
-    geom_ok = (cos_p > 0.0) & (cos_l > 1e-6)
-    f = eval_bsdf(scene, hit.mat, hit.n, wo, wi_l)
-    # trace only shadow rays that can contribute: live lane, light facing,
-    # and a lobe that can eval nonzero; the rest get tmax = 0
-    want = active & geom_ok & nee_nonspecular(scene, hit.mat)
-    n_shadow = want.sum(dtype=torch.float32)
-    so = hit.p + ns * eps
-    occ = occl(scene, so, wi_l,
-               tmax=torch.where(want, dist * (1.0 - 1e-3), 0.0))
-    pdf_sa = pdf_a * dist2 / torch.clamp(cos_l, min=1e-6)
-    if cfg.mis:
-        pb = pdf_bsdf(scene, hit.mat, hit.n, wo, wi_l)
-        w_nee = _power2(pdf_sa, pb)
-    else:
-        w_nee = 1.0
-    contrib = thr * f * le_l * (w_nee * cos_p / pdf_sa)[:, None]
-    nee_on = want & torch.logical_not(occ)
-    L = L + torch.where(nee_on[:, None], contrib, 0.0)
+    with span("pt.light"):
+        y, n_l, le_l, pdf_a, _, _ = sample_light(scene, ul0, ul1, ul2)
+        to_l = y - hit.p
+        dist2 = torch.clamp(g.dot(to_l, to_l), min=1e-12)
+        dist = torch.sqrt(dist2)
+        wi_l = to_l / dist[:, None]
+        cos_p = g.dot(wi_l, ns)
+        cos_l = g.dot(n_l, -wi_l)
+        geom_ok = (cos_p > 0.0) & (cos_l > 1e-6)
+    with span("pt.shadow"):
+        f = eval_bsdf(scene, hit.mat, hit.n, wo, wi_l)
+        # trace only shadow rays that can contribute: live lane, light
+        # facing, and a lobe that can eval nonzero; the rest get tmax = 0
+        want = active & geom_ok & nee_nonspecular(scene, hit.mat)
+        n_shadow = want.sum(dtype=torch.float32)
+        so = hit.p + ns * eps
+        occ = occl(scene, so, wi_l,
+                   tmax=torch.where(want, dist * (1.0 - 1e-3), 0.0))
+        pdf_sa = pdf_a * dist2 / torch.clamp(cos_l, min=1e-6)
+        if cfg.mis:
+            pb = pdf_bsdf(scene, hit.mat, hit.n, wo, wi_l)
+            w_nee = _power2(pdf_sa, pb)
+        else:
+            w_nee = 1.0
+        contrib = thr * f * le_l * (w_nee * cos_p / pdf_sa)[:, None]
+        nee_on = want & torch.logical_not(occ)
+        L = L + torch.where(nee_on[:, None], contrib, 0.0)
 
-    # ---- BSDF sampling / continuation ----
+    # ---- BSDF sampling, then Russian roulette and the next ray ----
     ub0, ub1, ub2 = rng.uniform3(uid, rng.salt(b, rng.SLOT_BSDF), cfg.seed)
-    wi, wgt, pdf_b, is_delta = sample_bsdf(
-        scene, hit.mat, hit.n, wo, ub0, ub1, ub2,
-        transport_radiance=cfg.transport_radiance,
-        decision_scene=decision_scene,
-    )
-    thr = thr * wgt
+    with span("pt.sample"):
+        wi, wgt, pdf_b, is_delta = sample_bsdf(
+            scene, hit.mat, hit.n, wo, ub0, ub1, ub2,
+            transport_radiance=cfg.transport_radiance,
+            decision_scene=decision_scene,
+        )
+        thr = thr * wgt
+    with span("pt.roulette"):
+        if b >= cfg.rr_start:
+            ur, _, _ = rng.uniform3(uid, rng.salt(b, rng.SLOT_RR), cfg.seed)
+            # q is the probability of a detached discrete decision: do not
+            # differentiate the 1/q compensation through q
+            q = torch.clamp(torch.amax(thr, dim=-1), 0.05, 0.95).detach()
+            active = active & (ur < q)
+            thr = thr / q[:, None]
 
-    # ---- Russian roulette ----
-    if b >= cfg.rr_start:
-        ur, _, _ = rng.uniform3(uid, rng.salt(b, rng.SLOT_RR), cfg.seed)
-        # q is the probability of a detached discrete decision: do not
-        # differentiate the 1/q compensation through q
-        q = torch.clamp(torch.amax(thr, dim=-1), 0.05, 0.95).detach()
-        active = active & (ur < q)
-        thr = thr / q[:, None]
-
-    side = torch.where(g.dot(wi, hit.n) >= 0.0, 1.0, -1.0)
-    o = hit.p + hit.n * (side * eps)[:, None]
-    d = wi
-    prev_delta = is_delta
-    prev_pdf = pdf_b
-    alive = active & (torch.amax(thr, dim=-1) > 0.0)
+        side = torch.where(g.dot(wi, hit.n) >= 0.0, 1.0, -1.0)
+        o = hit.p + hit.n * (side * eps)[:, None]
+        d = wi
+        prev_delta = is_delta
+        prev_pdf = pdf_b
+        alive = active & (torch.amax(thr, dim=-1) > 0.0)
     return (o, d, L, thr, alive, prev_delta, prev_pdf), \
         (issued, n_active, n_shadow)
 
@@ -210,26 +217,27 @@ def trace_radiance(scene, uid, cfg, decision_scene=None,
     for b in range(cfg.max_bounces + 1):
         step = functools.partial(_bounce_step, b=b, cfg=cfg, isect=isect,
                                  occl=occl)
-        if remat:
-            # scene, decision_scene and uid are explicit arguments, as in
-            # the reference, so the recomputation reads them and not
-            # closure state; the bounce draws from the counter-based RNG,
-            # so torch's RNG state needs no saving
-            carry, (issued, n_active, n_shadow) = checkpoint(
-                step, scene, decision_scene, uid, carry,
-                use_reentrant=False, preserve_rng_state=False)
-        else:
-            carry, (issued, n_active, n_shadow) = step(
-                scene, decision_scene, uid, carry)
-        issued_counts.append(issued)
-        alive_counts.append(n_active)
-        if n_shadow is not None:
-            shadow_counts.append(n_shadow)
-        if do_sort and b < cfg.max_bounces - 1:
-            perm = torch.argsort(_coherence_key(scene, carry[0], carry[1],
-                                                carry[4]), stable=True)
-            uid = uid[perm]
-            carry = tuple(x[perm] for x in carry)
+        with span("pt.bounce"):
+            if remat:
+                # scene, decision_scene and uid are explicit arguments, as in
+                # the reference, so the recomputation reads them and not
+                # closure state; the bounce draws from the counter-based RNG,
+                # so torch's RNG state needs no saving
+                carry, (issued, n_active, n_shadow) = checkpoint(
+                    step, scene, decision_scene, uid, carry,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                carry, (issued, n_active, n_shadow) = step(
+                    scene, decision_scene, uid, carry)
+            issued_counts.append(issued)
+            alive_counts.append(n_active)
+            if n_shadow is not None:
+                shadow_counts.append(n_shadow)
+            if do_sort and b < cfg.max_bounces - 1:
+                perm = torch.argsort(_coherence_key(scene, carry[0], carry[1],
+                                                    carry[4]), stable=True)
+                uid = uid[perm]
+                carry = tuple(x[perm] for x in carry)
 
     L = carry[2]
     if do_sort:
@@ -277,7 +285,8 @@ def render_pt(scene, cfg, decision_scene=None, intersect_fn=None,
     L, stats = trace_chunked(scene, uids, cfg, decision_scene=decision_scene,
                              intersect_fn=intersect_fn,
                              occluded_fn=occluded_fn)
-    img = film_from_radiance(L[:n_total], cfg)
+    with span("pt.film"):
+        img = film_from_radiance(L[:n_total], cfg)
     return img, stats
 
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from tputracer_torch.trace import span
+
 # Dimension-group slots within one bounce (same values as tputracer.rng).
 SALT_STRIDE = 8
 SLOT_LIGHT = 0      # light pick + light-surface (u,v)
@@ -70,12 +72,13 @@ def uniform3(uid, salt, seed):
     seed: int — frame seed
     returns three (N,) float32 tensors
     """
-    u = uid.to(torch.int64) & 0xFFFFFFFF
-    u = torch.where(u >= (1 << 31), u - (1 << 32), u).to(torch.int32)
-    s = torch.full_like(u, _as_i32(int(salt)))
-    sd = torch.full_like(u, _as_i32(int(seed)))
-    x, y, z = _pcg3d(u, s, sd)
-    return _to_unit(x), _to_unit(y), _to_unit(z)
+    with span("rng.uniform3"):
+        u = uid.to(torch.int64) & 0xFFFFFFFF
+        u = torch.where(u >= (1 << 31), u - (1 << 32), u).to(torch.int32)
+        s = torch.full_like(u, _as_i32(int(salt)))
+        sd = torch.full_like(u, _as_i32(int(seed)))
+        x, y, z = _pcg3d(u, s, sd)
+        return _to_unit(x), _to_unit(y), _to_unit(z)
 
 
 def salt(bounce: int, slot: int) -> int:

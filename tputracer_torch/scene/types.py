@@ -19,6 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tputracer_torch.trace import span, spanned
+
 # material kinds
 DIFFUSE = 0
 MIRROR = 1
@@ -153,6 +155,7 @@ def _pluecker_matrix(v0, v1, v2):
     return np.stack(out, axis=0).astype(np.float32)   # (3,6,T)
 
 
+@spanned("scene.build")
 def make_scene(
     tri_vertices,      # (T,3,3) float — [v0, v1, v2] per triangle
     tri_mat,           # (T,) int
@@ -179,7 +182,9 @@ def make_scene(
     if accel == "cluster" or (accel == "auto" and T > cluster_threshold):
         from tputracer_torch.accel.bvh import build_clusters
 
-        perm, mask, cmin, cmax = build_clusters(tv, leaf_size=leaf_size)
+        with span("scene.bvh") as rec:
+            perm, mask, cmin, cmax = build_clusters(tv, leaf_size=leaf_size)
+            rec.add(clusters=len(cmin))
         # padding slots repeat triangle 0; zero their geometry so they are
         # degenerate (never intersected) and point them at material 0
         v0 = tv[perm, 0] * mask[:, None]

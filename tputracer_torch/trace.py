@@ -1,0 +1,139 @@
+"""Spans and counters: where the port's host time goes, and what it moved.
+
+``with span("graphs.copy_in") as rec: ...; rec.add(bytes=n)`` times a
+stretch of the program on the host's clock (``time.perf_counter_ns``) and
+keeps a :class:`Record` of it: its name, its id, the id of the span
+around it (its parent, 0 for none), the id of the outermost span around
+it (its request's root: one ``api.render`` call, one fit step), its start
+and end, its counts, and where a span has one its device time in
+milliseconds (``device``).
+
+Records go into a ring per name that keeps the newest :data:`RING`, in
+one of two bins: *traced*, the records of spans that started while a
+``torch.profiler`` was running, and *untraced*, all others.  While a
+profiler runs, each span also opens
+``torch.profiler.record_function("tputracer.<name>")``, so its interval
+lies on the profiler's host timeline beside the device's ops, on the
+same clock; with no profiler running no ``record_function`` is made, and
+a span costs a flag check, two clock reads and an append.
+
+There is no exporter: ``cli.py --profile`` writes the profiler's trace,
+which holds the spans, and a caller in the process reads the records
+with :func:`records`.
+"""
+
+from __future__ import annotations
+
+import functools
+import itertools
+import threading
+import time
+from collections import deque
+
+import torch
+import torch.autograd.profiler as _profiler
+
+# the records kept of each name in each bin, newest last
+RING = 65_536
+PREFIX = "tputracer."
+
+_BINS = ({}, {})              # untraced, traced: name -> deque of Records
+_IDS = itertools.count(1)
+_LOCAL = threading.local()    # .top: the thread's innermost open span
+_clock = time.perf_counter_ns
+# callables that fill in records whose device times came in late
+SETTLERS: list = []
+
+
+class Record:
+    """One span, made by :func:`span`: times in ns on the host's
+    ``perf_counter_ns`` clock, ``device`` None or {name: device ms}."""
+
+    __slots__ = ("name", "id", "start_ns", "end_ns", "counts", "device",
+                 "traced", "_up", "_fn")
+
+    def __init__(self, name, **counts):
+        self.name = name
+        self.counts = counts
+        self.device = None
+
+    def add(self, **counts):
+        """Add to the record's counts."""
+        for k, v in counts.items():
+            self.counts[k] = self.counts.get(k, 0) + v
+
+    @property
+    def ms(self):
+        """The span's host milliseconds."""
+        return (self.end_ns - self.start_ns) * 1e-6
+
+    @property
+    def parent(self):
+        """The id of the span around this one, 0 for none."""
+        return 0 if self._up is None else self._up.id
+
+    @property
+    def root(self):
+        """The id of the outermost span around this one (its own if
+        none)."""
+        rec = self
+        while rec._up is not None:
+            rec = rec._up
+        return rec.id
+
+    def __enter__(self):
+        local = _LOCAL
+        self._up = getattr(local, "top", None)
+        local.top = self
+        self.id = next(_IDS)
+        if _profiler._is_profiler_enabled:
+            self.traced = True
+            self._fn = torch.profiler.record_function(PREFIX + self.name)
+            self._fn.__enter__()
+        else:
+            self.traced = False
+        self.start_ns = _clock()
+        return self
+
+    def __exit__(self, kind, value, tb):
+        self.end_ns = _clock()
+        if self.traced:
+            self._fn.__exit__(kind, value, tb)
+            self._fn = None
+        _LOCAL.top = self._up
+        rings = _BINS[self.traced]
+        try:
+            rings[self.name].append(self)
+        except KeyError:
+            rings[self.name] = deque([self], maxlen=RING)
+        return False
+
+
+# ``with span(name, **counts) as rec``: a Record of the enclosed stretch,
+# its counts added to with ``rec.add``
+span = Record
+
+
+def spanned(name):
+    """A decorator: each call of the function inside a span of ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with Record(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def records(name, traced=False):
+    """The kept records of ``name`` in the traced or untraced bin, oldest
+    first; device times that have come in since are filled in first."""
+    for settle in SETTLERS:
+        settle()
+    return list(_BINS[bool(traced)].get(name, ()))
+
+
+def reset():
+    """Forget every record (for tests)."""
+    for b in _BINS:
+        b.clear()
