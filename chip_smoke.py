@@ -6,7 +6,7 @@
 Run from the root of a checkout.  Phases, each printing one line:
 
   1. device: needs torch.cuda; prints the card's name and power limit.
-  2. build: compiles the three sources of tputracer_torch/csrc/ (one nvcc
+  2. build: compiles the four sources of tputracer_torch/csrc/ (one nvcc
      per source, started together) and builds the config-3 mesh scene on
      the card, saying which BVH builder (native or NumPy) ran.
   3. kernel: the intersection kernel against its plain PyTorch version,
@@ -90,7 +90,8 @@ Run from the root of a checkout.  Phases, each printing one line:
      1e-2: 24 steps in chains of 8 with a checkpoint every 8; it must
      launch the intersection kernel 7 times a step (4 closest-hit and 3
      shadow calls), 14 with remat (the backward pass recomputes each
-     bounce), the other kernels never, and the loss must fall.  Three
+     bounce), the other kernels never, and the sampler kernel 8 times a
+     step (1 + 6 + 1 draws); the loss must fall.  Three
      identical grad_render calls must give the same gradient bits (the
      table lookups' backward is lookup.fetch's one-hot matmul, whose
      summation order the shapes fix); a fit stopped after 16 steps and
@@ -163,6 +164,18 @@ Run from the root of a checkout.  Phases, each printing one line:
      between CUDA events, timed here), the peak memory. Then config 4's
      trace_bdpt_rows through graphs.call: L_own and the ray counts bit for
      bit.
+ 18. sampler: the sampler kernel (csrc/rng.cu, rng.uniform3_cuda) against
+     rng.uniform3_plain bit for bit at 2^16 and 2^20 lanes (and 2^20 + 5),
+     uids over the whole int64 range, salts and seeds above 2^31; timed
+     at 2^16 and 2^20 lanes of a render's uids (also as 20 calls inside a
+     CUDA graph, graph_ms, which leaves out the host's work) beside its
+     bound (20 bytes a lane) and the plain version.  Then configs 1 and 3
+     through api.render (eager, capture, replay): each call must launch the
+     kernel once a draw, 40 and 88 times, the eager and capturing calls' draws
+     must all take the kernel (their rng.uniform3 spans), and the graph
+     must hold those launches; a second graph of the same render with
+     uniform3 on the torch route must hold none and give the same image
+     and ray counts bit for bit; the two graphs' replays timed in turns.
 
 Phases 4, 7, 10, 12, 13 and 16 go through the same entry points, whose
 first call of a key runs eagerly, so their counted calls are eager ones;
@@ -347,17 +360,17 @@ def capture_seconds():
 
 
 def phase_build():
-    from tputracer_torch import cuda_build
+    from tputracer_torch import cuda_build, rng
     from tputracer_torch.accel import bvh
     from tputracer_torch.accel import intersect_cuda as ic
     from tputracer_torch.accel import pairs_cuda as pc
     from tputracer_torch.accel import traverse_cuda as tc
     from tputracer_torch.scene import mesh_scene
 
-    sources = ("intersect.cu", "traverse.cu", "pairs.cu")
+    sources = ("intersect.cu", "traverse.cu", "pairs.cu", "rng.cu")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:     # one nvcc per source, together
-        for job in [pool.submit(m.load_kernel) for m in (ic, tc, pc)]:
+    with ThreadPoolExecutor(4) as pool:     # one nvcc per source, together
+        for job in [pool.submit(m.load_kernel) for m in (ic, tc, pc, rng)]:
             job.result()
     nvcc_s = time.perf_counter() - t0
     ptxas = {src: [ln.strip() for ln in
@@ -1805,7 +1818,7 @@ def wall_s(fn, reps):
 def phase_fit():
     """The config-5 path: tputracer_torch.fit.fit of Cornell boxes at
     128x128, 4 spp, 3 bounces, counted (7 intersection launches a step, 14
-    with remat); the gradients' bits across repeated calls; the plain
+    with remat, and 8 sampler launches); the gradients' bits across repeated calls; the plain
     hooks' loss and gradients; the CPU's at 32x32; remat against none;
     a resume against the uninterrupted fit; chains timed with and without
     remat; a BDPT fit; a clustered mesh through the traversal kernel; and
@@ -1813,6 +1826,7 @@ def phase_fit():
     import tempfile
 
     from tputracer_torch import fit as tfit
+    from tputracer_torch import rng
     from tputracer_torch.accel import intersect_plain, occluded_plain
     from tputracer_torch.api import grad_render
     from tputracer_torch.config import BdptConfig, RenderConfig
@@ -1834,13 +1848,21 @@ def phase_fit():
     kw = dict(cfg=cfg, learning_rate=FIT_LR, init=init, log_every=0,
               steps_per_dispatch=FIT_K, checkpoint_every=FIT_K)
 
+    # the sampler's draws a chunk: the camera, light and BSDF at every
+    # bounce but the last, Russian roulette from rr_start on
+    draws = n_chunks * (1 + 2 * cfg.max_bounces
+                        + max(0, cfg.max_bounces - cfg.rr_start))
     with tempfile.TemporaryDirectory() as tmp:
         # the main path, counted: exactly this one call to fit
+        sampler_before = rng.LAUNCHES
         (_, p_full, h_full), launches = counted(
             lambda: tfit.fit(scene, target, steps=steps,
                              checkpoint_path=os.path.join(tmp, "full.npz"),
                              **kw),
             dict(none, fused_intersect=steps * per_step), "config-5 fit")
+        sampler_step = (rng.LAUNCHES - sampler_before) / steps
+        check(sampler_step == draws, f"config-5 fit: {sampler_step} sampler "
+                                     f"launches a step, want {draws}")
         losses = [h["loss"] for h in h_full]
         check(len(losses) == steps and bool(np.isfinite(losses).all()),
               f"config-5 fit losses {losses}")
@@ -1953,6 +1975,7 @@ def phase_fit():
          steps=steps, launches=launches,
          launches_fit_step=launches["fused_intersect"] / steps,
          launches_fit_step_remat=launches_remat["fused_intersect"] / FIT_K,
+         sampler_launches_fit_step=sampler_step,
          losses=losses, remat_losses=[h["loss"] for h in h_remat],
          fitted={k: v.cpu().tolist() for k, v in p_full.items()},
          grad_repeat_bitwise=repeat_bits, grad_repeat_max_rel_err=repeat_err,
@@ -2020,7 +2043,7 @@ def phase_fit():
     emit("fit_memory", config="boxes 256x256 16spp 4 bounces, one chunk of "
                               "2^20 paths", plain=mem[False], remat=mem[True])
     return (launches["fused_intersect"] / steps,
-            launches_remat["fused_intersect"] / FIT_K)
+            launches_remat["fused_intersect"] / FIT_K, sampler_step)
 
 
 def phase_spheres():
@@ -2918,6 +2941,166 @@ def phase_graphs(mesh):
     return results
 
 
+# the sampler's traffic: 8 bytes of uid in and three float32 out, a lane
+SAMPLER_BYTES_PER_LANE = 20
+
+
+def sampler_bits(n, seed):
+    """The kernel against uniform3_plain, bit for bit, on n uids drawn over
+    the whole int64 range, for salts and seeds at and above 2^31; one
+    launch a call.  Returns the largest absolute difference seen."""
+    from tputracer_torch import rng
+
+    r = np.random.default_rng(seed)
+    uid = torch.from_numpy(r.integers(-(2**63), 2**63 - 1, n, np.int64))
+    uid = uid.cuda()
+    draws = [(0, 0), (25, 7), (2**31 + 5, 2**32 - 1), (2**32 - 1, 2**31)]
+    err = 0.0
+    for salt, sd in draws:
+        before = rng.LAUNCHES
+        got = rng.uniform3_cuda(uid, salt, sd)
+        want = rng.uniform3_plain(uid, salt, sd)
+        torch.cuda.synchronize()
+        check(rng.LAUNCHES == before + 1,
+              f"sampler: {rng.LAUNCHES - before} launches for one call")
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"sampler: the kernel differs from uniform3_plain at n={n}, "
+              f"salt={salt}, seed={sd}")
+        err = max([err] + [float((g - w).abs().max())
+                           for g, w in zip(got, want)])
+    return err
+
+
+def graph_ms(fn, reps=20):
+    """Milliseconds of the card per call of fn inside one CUDA graph of
+    ``reps`` calls (the median of 5 replays), as a render's graph runs
+    it: no host work between the launches.  device_ms of a call whose
+    host work outlasts its kernels times the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 1, 5) / reps
+
+
+def sampler_times(n):
+    """The kernel and the plain version on the uids of a render's chunk
+    (0 .. n-1, config 1's first): one call with its host work (median of
+    5), the card's time a call over 20 back to back, the same inside a
+    CUDA graph, and the bound."""
+    from tputracer_torch import rng
+
+    uid = torch.arange(n, dtype=torch.int64, device="cuda")
+    salt = rng.salt(1, rng.SLOT_BSDF)
+
+    def kernel():
+        rng.uniform3(uid, salt, 0)
+
+    def plain():
+        rng.uniform3_plain(uid, salt, 0)
+
+    bound_ms, bound_by = bound(0, SAMPLER_BYTES_PER_LANE * n)
+    return dict(lanes=n, ms=cuda_ms(kernel, 2, 5), device_ms=device_ms(kernel),
+                graph_ms=graph_ms(kernel), bound_ms=bound_ms,
+                bound_by=bound_by, plain_ms=cuda_ms(plain, 2, 5),
+                plain_graph_ms=graph_ms(plain))
+
+
+def sampler_render(name, sc, cfg, draws):
+    """Config ``name`` through api.render, three calls (eager, capture,
+    replay), then through a second graph with uniform3 on the torch route:
+    the launches, draws and graph nodes of each, the bits, and the two
+    graphs' replays in turns."""
+    from tputracer_torch import graphs, rng, trace
+    from tputracer_torch.api import render
+    from tputracer_torch.integrators.pt import render_pt
+
+    def torch_sampler(s):
+        kernel_route = rng.uniform3
+        rng.uniform3 = rng.uniform3_plain
+        try:
+            return render_pt(s, cfg)
+        finally:
+            rng.uniform3 = kernel_route
+
+    graphs.clear()
+    calls = []
+    for _ in range(3):   # eager, the capture, a replay
+        trace.reset()
+        before = rng.LAUNCHES
+        out = render(sc, cfg)
+        torch.cuda.synchronize()
+        spans = trace.records("rng.uniform3")
+        calls.append(dict(launches=rng.LAUNCHES - before, draws=len(spans),
+                          through_kernel=sum(r.counts["kernel"]
+                                             for r in spans)))
+    check([c["launches"] for c in calls] == [draws] * 3,
+          f"{name}: sampler launches {calls}, want {draws} a call")
+    check([c["draws"] for c in calls[:2]] == [draws] * 2
+          and all(c["through_kernel"] == c["draws"] for c in calls),
+          f"{name}: draws {calls}, want {draws} through the kernel")
+    g_kernel = graphs.graphs()[0]
+    check(g_kernel.census["uniform3_kernel"] == draws,
+          f"{name}: the graph holds {g_kernel.census['uniform3_kernel']} "
+          f"sampler kernels, want {draws}")
+    before = rng.LAUNCHES
+    for _ in range(3):
+        plain = graphs.call("sampler_torch_route", torch_sampler, sc, cfg)
+    torch.cuda.synchronize()
+    check(rng.LAUNCHES == before, f"{name}: the torch route launched the "
+                                  f"kernel")
+    g_plain = graphs.graphs()[1]
+    check(g_plain.census["uniform3_kernel"] == 0,
+          f"{name}: the torch route's graph holds sampler kernels")
+    check(graph_same("pt", out, plain)[0],
+          f"{name}: the kernel's render is not the torch sampler's, bit for "
+          f"bit")
+    kernel_ms, plain_ms = [], []
+    for _ in range(5):   # in turns, so drift hits both alike
+        kernel_ms.append(cuda_ms(lambda: render(sc, cfg), 0, 1))
+        plain_ms.append(cuda_ms(lambda: graphs.call(
+            "sampler_torch_route", torch_sampler, sc, cfg), 0, 1))
+    res = dict(config=name, draws=draws, calls=calls,
+               kernel_nodes=g_kernel.census["kernel_nodes"],
+               kernel_nodes_torch_route=g_plain.census["kernel_nodes"],
+               replay_ms=statistics.median(kernel_ms),
+               replay_ms_all=kernel_ms,
+               replay_ms_torch_route=statistics.median(plain_ms),
+               replay_ms_torch_route_all=plain_ms)
+    graphs.clear()
+    return res
+
+
+def phase_sampler(mesh):
+    """Phase 18: the sampler kernel against its plain version, timed, and
+    configs 1 and 3 through it and through the torch sampler, graphed."""
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.scene import cornell_box
+
+    t0 = time.perf_counter()
+    max_abs = max(sampler_bits(n, seed=n)
+                  for n in (1 << 16, 1 << 20, (1 << 20) + 5))
+    times = [sampler_times(n) for n in (1 << 16, 1 << 20)]
+    for t in times:
+        emit("sampler", **t)
+    renders = [
+        sampler_render("config 1", cornell_box("boxes", device="cuda"),
+                       RenderConfig(width=512, height=512, spp=16,
+                                    max_bounces=4), 4 * (1 + 8 + 1)),
+        sampler_render("config 3", mesh, RenderConfig(**MESH_CFG),
+                       4 * (1 + 16 + 5)),
+    ]
+    for r in renders:
+        emit("sampler", **r)
+    emit("sampler", max_abs_err=max_abs, seconds=time.perf_counter() - t0)
+    return times, renders, max_abs
+
+
 def main():
     start = time.perf_counter()
     phase_device()
@@ -2940,7 +3123,7 @@ def main():
     free_graphs()
     phase_progressive(bdpt_img)
     free_graphs()
-    fit_step, fit_step_remat = phase_fit()
+    fit_step, fit_step_remat, sampler_fit_step = phase_fit()
     free_graphs()
     dp1, tiled3, dp4, ring4, dp5 = phase_dist(c1_img, mesh_img, mesh_stats,
                                               bdpt_img.cpu().numpy())
@@ -2948,6 +3131,7 @@ def main():
     spheres_launches = phase_spheres()
     free_graphs()
     phase_graphs(mesh)
+    s_times, s_renders, s_max_abs = phase_sampler(mesh)
     emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
@@ -3018,6 +3202,19 @@ def main():
         "plain_ms": p_case["pairtest_plain_ms"],
         "bound_ms": p_case["pairtest_bound_ms"],
         "bound_by": p_case["pairtest_bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "uniform3",
+        "route": "cuda",
+        "source": "tputracer_torch/csrc/rng.cu",
+        "replaces": None,    # no Pallas counterpart: XLA fuses the hash
+        # rng.LAUNCHES over a replay of each graph
+        "launches": s_renders[0]["calls"][-1]["launches"],
+        "launches_config3": s_renders[1]["calls"][-1]["launches"],
+        "launches_fit_step": sampler_fit_step,
+        "max_abs_err": s_max_abs,
+        **{k: s_times[-1][k] for k in ("lanes", "ms", "device_ms", "graph_ms",
+                                       "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     }]}), flush=True)
     print(card_line(), flush=True)

@@ -12,7 +12,9 @@ bit for bit (BDPT's splat at float tolerance), edits seen without a new
 capture, replays from other streams, and the launch counters after one
 call; their spans: a replay's copy-in bytes, its device times from the
 graph's event nodes, and the kernel census with those nodes in the
-graph.  The ray sets are chip_smoke.py's.
+graph; the sampler kernel (csrc/rng.cu) against uniform3_plain bit for
+bit, and graphed renders through it against those through the torch
+sampler.  The ray sets are chip_smoke.py's.
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -973,3 +975,145 @@ def test_graph_event_nodes_leave_the_kernel_census(case):
             break
     assert census["kernel_nodes"] in counts, counts
     graphs.clear()
+
+
+# ---- the sampler kernel (csrc/rng.cu) ---------------------------------------
+
+def sampler_uids(n, seed):
+    """n int64 uids: random over the whole int64 range (negative ones and
+    ones >= 2^32 among them), then small ones and the edges of 2^31 and
+    2^32, as far as n allows."""
+    r = np.random.default_rng(seed)
+    edges = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1, 2**32, 2**32 + 7,
+                      -1, -(2**31), -(2**32) - 3, 2**63 - 1, -(2**63)],
+                     np.int64)
+    uid = np.concatenate([edges,
+                          r.integers(-(2**63), 2**63 - 1, n, np.int64)])
+    return torch.from_numpy(uid[:n]).cuda()
+
+
+SAMPLER_DRAWS = [(0, 0), (3 * 8 + 1, 7), (2**31 + 5, 2**32 - 1),
+                 (2**32 - 1, 2**31), (123_456_789, 4_000_000_000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 1023, 1 << 16, (1 << 20) + 5])
+def test_uniform3_kernel_matches_plain(n):
+    """The kernel's three streams are uniform3_plain's bit for bit, for
+    uids anywhere in int64 and salts and seeds at and above 2^31; one
+    launch a call."""
+    from tputracer_torch import rng
+
+    need_card()
+    uid = sampler_uids(n, seed=n)
+    for salt, seed in SAMPLER_DRAWS:
+        launches = rng.LAUNCHES
+        got = rng.uniform3_cuda(uid, salt, seed)
+        want = rng.uniform3_plain(uid, salt, seed)
+        torch.cuda.synchronize()
+        assert rng.LAUNCHES == launches + 1
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and g.shape == (n,)
+            assert g.is_contiguous()
+            assert torch.equal(g, w), (n, salt, seed)
+
+
+@pytest.mark.cuda
+def test_uniform3_kernel_on_slices_and_permutations():
+    """uids taken as slices (at offsets that leave them 16-byte aligned
+    and not) and permuted as sort_rays permutes them: the kernel's
+    streams are the plain version's, and the same draws of the same
+    uids wherever they sit."""
+    from tputracer_torch import rng
+
+    need_card()
+    base = sampler_uids(70_001, seed=3)
+    salt, seed = 2**31 + 11, 2**32 - 3
+    full = rng.uniform3_cuda(base, salt, seed)
+    for lo, hi in ((0, 65_536), (1, 40_001), (2, 70_001), (3, 6), (5, 5)):
+        got = rng.uniform3_cuda(base[lo:hi], salt, seed)
+        for g, w, f in zip(got, rng.uniform3_plain(base[lo:hi], salt, seed),
+                           full):
+            assert torch.equal(g, w), (lo, hi)
+            assert torch.equal(g, f[lo:hi]), (lo, hi)
+    keys = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 1 << 20, 70_001)).cuda()
+    perm = torch.argsort(keys, stable=True)
+    for g, w, f in zip(rng.uniform3_cuda(base[perm], salt, seed),
+                       rng.uniform3_plain(base[perm], salt, seed), full):
+        assert torch.equal(g, w)
+        assert torch.equal(g, f[perm])
+
+
+@pytest.mark.cuda
+def test_uniform3_routes_cuda_uids_to_the_kernel():
+    """uniform3 on a CUDA uid launches the kernel once (the span counts
+    kernel 1); the wrapper refuses what the kernel does not take."""
+    from tputracer_torch import rng, trace
+
+    need_card()
+    trace.reset()
+    uid = sampler_uids(4_099, seed=5)
+    launches = rng.LAUNCHES
+    got = rng.uniform3(uid, 17, 2**31 + 1)
+    assert rng.LAUNCHES == launches + 1
+    (rec,) = trace.records("rng.uniform3")
+    assert rec.counts == {"kernel": 1}
+    for g, w in zip(got, rng.uniform3_plain(uid, 17, 2**31 + 1)):
+        assert torch.equal(g, w)
+    for bad in (uid.to(torch.int32), uid.reshape(1, -1), uid[::2],
+                uid.cpu()):
+        with pytest.raises(ValueError, match="uniform3_cuda"):
+            rng.uniform3_cuda(bad, 0, 0)
+    assert rng.LAUNCHES == launches + 1
+
+
+# config 1 and config 3 (BASELINE configs[0], [2]) and their draws a
+# render: a chunk draws for the camera, for the light and the BSDF at every
+# bounce but the last, and for Russian roulette from rr_start on
+SAMPLER_RENDERS = {
+    "config 1": ("boxes", RenderConfig(width=512, height=512, spp=16,
+                                       max_bounces=4), 4 * (1 + 8 + 1)),
+    "config 3": ("mesh", RenderConfig(width=256, height=256, spp=4,
+                                      max_bounces=8, rr_start=3,
+                                      chunk_size=1 << 16), 4 * (1 + 16 + 5)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SAMPLER_RENDERS))
+def test_graph_renders_through_the_sampler_kernel_match_torch_sampler(
+        case, monkeypatch):
+    """A graphed render (its eager first call, the capture, a replay)
+    launches the sampler kernel once a draw, and the graph holds those
+    launches; its image and ray counts are, bit for bit, those of the
+    same graphed render with uniform3 forced onto the torch route."""
+    from tputracer_torch import graphs, rng
+    from tputracer_torch.api import render
+
+    need_card()
+    name, cfg, draws = SAMPLER_RENDERS[case]
+    sc = (mesh_scene(subdiv=6, device="cuda") if name == "mesh"
+          else cornell_box(name, device="cuda"))
+
+    def three_calls():
+        graphs.clear()
+        outs, launches = [], []
+        for _ in range(3):   # eager, the capture, a replay
+            before = rng.LAUNCHES
+            outs.append(render(sc, cfg))
+            torch.cuda.synchronize()
+            launches.append(rng.LAUNCHES - before)
+        nodes = graphs.graphs()[0].census["uniform3_kernel"]
+        graphs.clear()
+        return outs, launches, nodes
+
+    kernel, launches, nodes = three_calls()
+    assert launches == [draws] * 3 and nodes == draws
+    monkeypatch.setattr(rng, "uniform3", rng.uniform3_plain)
+    plain, launches, nodes = three_calls()
+    assert launches == [0] * 3 and nodes == 0
+    for (img_k, st_k), (img_p, st_p) in zip(kernel, plain):
+        assert torch.equal(img_k, img_p)
+        assert all(torch.equal(st_k[k], st_p[k]) for k in st_p)
+    assert float(kernel[-1][0].mean()) > 0.1

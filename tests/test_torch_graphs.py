@@ -231,6 +231,9 @@ def test_progressive_pass_matches_jax(offset, step):
      "pairtest_kernel"),
     ("(anonymous namespace)::fold_kernel(float const*, int const*, int)",
      "fold_kernel"),
+    ("_ZN12_GLOBAL__N_115uniform3_kernelEPKxxjjxPf", "uniform3_kernel"),
+    ("(anonymous namespace)::uniform3_kernel(long long const*, long long, "
+     "unsigned int, unsigned int, long long, float*)", "uniform3_kernel"),
     ("_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEE"
      "St5arrayIPcLm1EEEEviT0_T1_", None),
     ("void at::native::index_elementwise_kernel<128, 4>(long, "
@@ -239,7 +242,7 @@ def test_progressive_pass_matches_jax(offset, step):
 ])
 def test_kernel_of_names_the_wrappers_kernels(symbol, kernel):
     """A graph's kernel nodes and a trace's kernels are counted by kernel
-    from their symbols: the port's five kernels, mangled or demangled, by
+    from their symbols: the port's six kernels, mangled or demangled, by
     their own names only."""
     assert graphs.kernel_of(symbol) == kernel
 
@@ -248,6 +251,7 @@ def test_kernels_map_to_the_wrappers_launch_counters():
     """Every launch counter of the kernels' wrappers is fed by one kernel
     of graphs.KERNELS, and only the fold kernel (launched behind each
     pair test) feeds none."""
+    from tputracer_torch import rng
     from tputracer_torch.accel import intersect_cuda, pairs_cuda, \
         traverse_cuda
 
@@ -256,7 +260,8 @@ def test_kernels_map_to_the_wrappers_launch_counters():
     assert fed == {(intersect_cuda.__name__, "LAUNCHES"),
                    (traverse_cuda.__name__, "LAUNCHES"),
                    (pairs_cuda.__name__, "EXPAND_LAUNCHES"),
-                   (pairs_cuda.__name__, "PAIRTEST_LAUNCHES")}
+                   (pairs_cuda.__name__, "PAIRTEST_LAUNCHES"),
+                   (rng.__name__, "LAUNCHES")}
     assert [k for k, c in graphs.KERNELS.items() if c is None] == \
         ["fold_kernel"]
     for m, a in (c for c in graphs.KERNELS.values() if c is not None):

@@ -2,7 +2,9 @@
 
 The port's pcg3d runs in int32 (wrapping sums and products, logical right
 shifts by masking); the JAX package's in uint32.  Both must give the very
-same float32 streams, or no image of the two packages could match.
+same float32 streams, or no image of the two packages could match.  On
+CPU tensors uniform3 takes the torch version, uniform3_plain; the CUDA
+kernel (csrc/rng.cu) is held to it on the card in test_torch_cuda.py.
 """
 
 import numpy as np
@@ -11,6 +13,7 @@ import torch
 
 from tputracer import rng as jrng
 from tputracer_torch import rng as trng
+from tputracer_torch import trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -38,11 +41,15 @@ def test_uniform3_bitwise_equal(salt, seed):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
-def test_uid_wraps_mod_2_32():
-    """A uid and uid + 2^32 are the same uint32 id."""
-    uid = torch.arange(0, 1000, dtype=torch.int64) * 977
-    a = trng.uniform3(uid, 5, 11)
-    b = trng.uniform3(uid + 2**32, 5, 11)
+@pytest.mark.parametrize("step, salt, seed", [(977, 5, 11),
+                                               (-4_099, 9, 2**31)],
+                         ids=["non-negative", "negative"])
+def test_uid_wraps_mod_2_32(step, salt, seed):
+    """A uid and uid + 2^32 are the same uint32 id; a negative int64 uid
+    is its low 32 bits."""
+    uid = torch.arange(0, 1000, dtype=torch.int64) * step
+    a = trng.uniform3(uid, salt, seed)
+    b = trng.uniform3(uid + 2**32, salt, seed)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -54,3 +61,34 @@ def test_salt_and_slots_match():
     for name in names:
         assert getattr(trng, name) == getattr(jrng, name), name
     assert trng.salt(4, trng.SLOT_RR) == jrng.salt(4, jrng.SLOT_RR)
+
+
+def test_cpu_uids_take_the_torch_route(monkeypatch):
+    """A CPU uid goes to uniform3_plain, never to the kernel's wrapper,
+    and its span counts kernel 0."""
+    def no_kernel(*args):
+        raise AssertionError("the CUDA route was taken for a CPU tensor")
+
+    monkeypatch.setattr(trng, "uniform3_cuda", no_kernel)
+    trace.reset()
+    uid = torch.arange(-500, 500, dtype=torch.int64) * 8_589_935
+    launches = trng.LAUNCHES
+    got = trng.uniform3(uid, 2**31 + 3, 2**32 - 7)
+    want = trng.uniform3_plain(uid, 2**31 + 3, 2**32 - 7)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    (rec,) = trace.records("rng.uniform3")
+    assert rec.counts == {"kernel": 0}
+    assert trng.LAUNCHES == launches
+
+
+def test_uniform3_refuses_a_device_without_a_route():
+    with pytest.raises(ValueError, match="no sampler route"):
+        trng.uniform3(torch.zeros(4, dtype=torch.int64, device="meta"), 0, 0)
+
+
+def test_uniform3_cuda_refuses_a_cpu_uid():
+    """The kernel's wrapper takes CUDA tensors only; its dtype, shape and
+    contiguity checks are held on the card."""
+    with pytest.raises(ValueError, match="uniform3_cuda"):
+        trng.uniform3_cuda(torch.arange(8, dtype=torch.int64), 0, 0)

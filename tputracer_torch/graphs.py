@@ -70,6 +70,7 @@ import re
 
 import torch
 
+from tputracer_torch import rng as _rng
 from tputracer_torch.accel import _use_pairs
 from tputracer_torch.accel import intersect_cuda as _ic
 from tputracer_torch.accel import pairs_cuda as _pc
@@ -84,7 +85,8 @@ KERNELS = {"fused_intersect_kernel": (_ic, "LAUNCHES"),
            "traverse_kernel": (_tc, "LAUNCHES"),
            "expand_kernel": (_pc, "EXPAND_LAUNCHES"),
            "pairtest_kernel": (_pc, "PAIRTEST_LAUNCHES"),
-           "fold_kernel": None}
+           "fold_kernel": None,
+           "uniform3_kernel": (_rng, "LAUNCHES")}
 _COUNTED = [k for k, c in KERNELS.items() if c is not None]
 
 # tensors copied into graphs' static inputs since the last reset

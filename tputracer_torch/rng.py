@@ -5,12 +5,18 @@ path's global uid, a salt (bounce * SALT_STRIDE + slot) and the frame
 seed, so the stream does not depend on chunking or device, and the two
 packages draw bitwise the same numbers (Jarzynski & Olano, JCGT 2020).
 
-PyTorch has little uint32 arithmetic, so the hash runs in int32: sums and
-products wrap to the same low 32 bits as uint32 would, and every right
-shift is made logical by masking off the sign-extended bits.
+On a CUDA tensor :func:`uniform3` launches ``csrc/rng.cu`` (built at
+first use), one kernel a draw; on a CPU tensor it runs
+:func:`uniform3_plain`, the torch version, which is also the kernel's
+oracle.  There is no other route.  PyTorch has little uint32 arithmetic,
+so the torch version runs the hash in int32: sums and products wrap to
+the same low 32 bits as uint32 would, and every right shift is made
+logical by masking off the sign-extended bits.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -27,6 +33,11 @@ SLOT_LIGHT_DIR = 5
 SLOT_LBSDF = 6
 
 _INV_2_24 = 1.0 / 16777216.0
+
+# kernel launches made by uniform3_cuda since the last reset
+LAUNCHES = 0
+
+_FN = None
 
 
 def _as_i32(v: int) -> int:
@@ -63,22 +74,81 @@ def _to_unit(bits):
     return ((bits >> 8) & 0xFFFFFF).to(torch.float32) * _INV_2_24
 
 
+def uniform3_plain(uid, salt, seed):
+    """:func:`uniform3` in torch ops, on any device: the CPU route and the
+    kernel's oracle."""
+    u = uid.to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u >= (1 << 31), u - (1 << 32), u).to(torch.int32)
+    s = torch.full_like(u, _as_i32(int(salt)))
+    sd = torch.full_like(u, _as_i32(int(seed)))
+    x, y, z = _pcg3d(u, s, sd)
+    return _to_unit(x), _to_unit(y), _to_unit(z)
+
+
+def load_kernel():
+    """Build (first use) and load the CUDA kernel; returns (fn, errstr)."""
+    global _FN
+    if _FN is None:
+        from tputracer_torch.cuda_build import load_library
+
+        lib = load_library("rng.cu")
+        fn = lib.tpt_uniform3
+        p, u32, i64 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_longlong
+        fn.argtypes = [p, i64, u32, u32,   # uid, n, salt, seed
+                       i64, p, p]          # stride, out, stream
+        fn.restype = ctypes.c_int
+        lib.tpt_rng_error_string.argtypes = [ctypes.c_int]
+        lib.tpt_rng_error_string.restype = ctypes.c_char_p
+        _FN = (fn, lib.tpt_rng_error_string)
+    return _FN
+
+
+def uniform3_cuda(uid, salt, seed):
+    """Launch the kernel on a contiguous (n,) int64 CUDA ``uid``: three
+    (n,) float32 tensors, the rows of one allocation."""
+    global LAUNCHES
+    if (uid.device.type != "cuda" or uid.dtype != torch.int64
+            or uid.dim() != 1 or not uid.is_contiguous()):
+        raise ValueError(
+            f"uniform3_cuda: want a contiguous (n,) int64 CUDA uid, got "
+            f"{uid.dtype} {tuple(uid.shape)} on {uid.device}"
+            f"{'' if uid.is_contiguous() else ' (not contiguous)'}")
+    n = uid.shape[0]
+    # rows a multiple of 4 floats apart, so each starts 16-byte aligned
+    stride = (n + 3) // 4 * 4
+    out = torch.empty((3, stride), dtype=torch.float32, device=uid.device)
+    if n:
+        fn, errstr = load_kernel()
+        with torch.cuda.device(uid.device):
+            stream = torch.cuda.current_stream(uid.device).cuda_stream
+            err = fn(uid.data_ptr(), n, int(salt) & 0xFFFFFFFF,
+                     int(seed) & 0xFFFFFFFF, stride, out.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"tpt_uniform3 launch failed: "
+                               f"{errstr(err).decode()} ({err})")
+        LAUNCHES += 1
+    return out[:, :n].unbind(0)
+
+
 def uniform3(uid, salt, seed):
     """Three U[0,1) streams for each path.
 
     uid:  (N,) integer tensor of path ids; taken mod 2^32 like the JAX
-          package's uint32 ids
+          package's uint32 ids (on the card: contiguous int64)
     salt: int — bounce * SALT_STRIDE + slot
     seed: int — frame seed
     returns three (N,) float32 tensors
+
+    The kernel on a CUDA tensor, :func:`uniform3_plain` on a CPU tensor;
+    the span's count ``kernel`` says which (1 or 0).
     """
-    with span("rng.uniform3"):
-        u = uid.to(torch.int64) & 0xFFFFFFFF
-        u = torch.where(u >= (1 << 31), u - (1 << 32), u).to(torch.int32)
-        s = torch.full_like(u, _as_i32(int(salt)))
-        sd = torch.full_like(u, _as_i32(int(seed)))
-        x, y, z = _pcg3d(u, s, sd)
-        return _to_unit(x), _to_unit(y), _to_unit(z)
+    with span("rng.uniform3", kernel=0) as rec:
+        if uid.device.type == "cuda":
+            rec.add(kernel=1)
+            return uniform3_cuda(uid, salt, seed)
+        if uid.device.type == "cpu":
+            return uniform3_plain(uid, salt, seed)
+        raise ValueError(f"no sampler route for device {uid.device}")
 
 
 def salt(bounce: int, slot: int) -> int:
