@@ -58,7 +58,8 @@ call, or with the count ``ungraphed`` a call that is never graphed);
 ``graphs.capture`` (count ``pool_bytes``) with ``graphs.census`` and
 ``graphs.instantiate``; and of a replay ``graphs.copy_in`` (counts
 ``tensors`` and ``bytes``), ``graphs.launch`` (its device times, see
-:class:`Graph`) and ``graphs.clone``.  The cache lives as long as the
+:class:`Graph`, with those of the phases ``fn`` ran while it was
+captured) and ``graphs.clone``.  The cache lives as long as the
 process, like jit's; :func:`clear` empties it and frees the graphs' pool.
 """
 
@@ -76,7 +77,7 @@ from tputracer_torch.accel import intersect_cuda as _ic
 from tputracer_torch.accel import pairs_cuda as _pc
 from tputracer_torch.accel import traverse_cuda as _tc
 from tputracer_torch.scene.types import CAMERA_FIELDS, TENSOR_FIELDS, Camera
-from tputracer_torch.trace import SETTLERS, span
+from tputracer_torch.trace import SETTLERS, capturing, phase_ms, span
 
 # the wrappers' kernels, by their names in csrc/, and the launch counter
 # each one's launches add to; the fold kernel runs behind every pair test,
@@ -239,9 +240,12 @@ class Graph:
     record gets ``wait_ms`` (ready to begin: the device, done with what
     came before, waiting for the graph's first node) and ``replay_ms``
     (begin to end) once the events have completed: at the next replay,
-    when records are read, or at :func:`clear`.  Nothing waits on them; a
-    replay whose events had not completed by its graph's next replay gets
-    the count ``untimed``."""
+    when records are read, or at :func:`clear`.  Each
+    ``tputracer_torch.trace.phase`` that ``fn`` ran during the capture
+    left a pair of event nodes too (``phases``), and the record also gets
+    each phase's device ms under its name, summed over its pairs.
+    Nothing waits on them; a replay whose events had not completed by its
+    graph's next replay gets the count ``untimed``."""
 
     def __init__(self, name, fn, scene, inputs):
         global CAPTURES
@@ -262,9 +266,10 @@ class Graph:
                     torch.cuda.Event(enable_timing=True, external=True)
                     for _ in range(2))
                 self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-                self.out = _capture(self.graph, stream, _pool(dev), name, fn,
-                                    self.scene, self.inputs, self.begin,
-                                    self.end)
+                with capturing() as self.phases:
+                    self.out = _capture(self.graph, stream, _pool(dev), name,
+                                        fn, self.scene, self.inputs,
+                                        self.begin, self.end)
                 recorded = [a - b for a, b in zip(_counts(), before)]
                 with span("graphs.census"):
                     self.census = census(self.graph.raw_cuda_graph())
@@ -323,7 +328,8 @@ class Graph:
             return
         if self.end.query():
             rec.device = {"wait_ms": self.ready.elapsed_time(self.begin),
-                          "replay_ms": self.begin.elapsed_time(self.end)}
+                          "replay_ms": self.begin.elapsed_time(self.end),
+                          **phase_ms(self.phases)}
         elif final:
             rec.add(untimed=1)
         else:

@@ -24,6 +24,12 @@ synchronizes with the host: the ray counts stay device tensors.
 
 On the card ``index_add_`` adds in no fixed order, so the splat's last
 bits may change from run to run; the per-path radiance ``L_own`` may not.
+
+A chunk's five phases are spans (``tputracer_torch.trace.phase``):
+``bdpt.eye_walk`` and ``bdpt.light_walk`` (count ``verts``), ``bdpt.s0``,
+``bdpt.connect`` and ``bdpt.splat`` (count ``strategies``), each with the
+count ``lanes``; inside a CUDA graph's capture each also leaves event
+nodes that time it on the device at every replay.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from tputracer_torch.integrators.pt import camera_rays, film_from_radiance
 from tputracer_torch.lights import pdf_light_area, sample_light
 from tputracer_torch.lookup import fetch_int
 from tputracer_torch.scene.types import DIFFUSE
+from tputracer_torch.trace import phase
 
 _BIG = 3.0e38
 _PI = math.pi
@@ -427,11 +434,24 @@ def trace_bdpt(scene, uid, cfg, intersect_fn=None, occluded_fn=None):
     rays traced; both (,) float32 tensors on the device.
     """
     acc = {}
-    zs = eye_subpaths(scene, uid, cfg, isect=intersect_fn, stats_acc=acc)
-    ys = light_subpaths(scene, uid, cfg, isect=intersect_fn, stats_acc=acc)
-    L_own = s0_radiance(scene, cfg, zs) + connection_radiance(
-        scene, cfg, ys, zs, occl=occluded_fn, stats_acc=acc)
-    splat = t1_splats(scene, cfg, ys, zs, occl=occluded_fn, stats_acc=acc)
+    n = uid.shape[0]
+    with phase("bdpt.eye_walk", lanes=n) as rec:
+        zs = eye_subpaths(scene, uid, cfg, isect=intersect_fn, stats_acc=acc)
+        rec.add(verts=len(zs))
+    with phase("bdpt.light_walk", lanes=n) as rec:
+        ys = light_subpaths(scene, uid, cfg, isect=intersect_fn,
+                            stats_acc=acc)
+        rec.add(verts=len(ys))
+    V = cfg.max_bounces + 2
+    with phase("bdpt.s0", lanes=n):
+        L_s0 = s0_radiance(scene, cfg, zs)
+    with phase("bdpt.connect", lanes=n, strategies=sum(
+            min(len(ys), V - t) for t in range(2, len(zs) + 1))):
+        L_own = L_s0 + connection_radiance(
+            scene, cfg, ys, zs, occl=occluded_fn, stats_acc=acc)
+    with phase("bdpt.splat", lanes=n, strategies=min(len(ys), V - 1)):
+        splat = t1_splats(scene, cfg, ys, zs, occl=occluded_fn,
+                          stats_acc=acc)
     zero = torch.zeros((), dtype=torch.float32, device=uid.device)
     stats = {"rays_closest": acc.get("rays_closest", zero),
              "rays_shadow": acc.get("rays_shadow", zero)}

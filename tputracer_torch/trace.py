@@ -17,6 +17,13 @@ lies on the profiler's host timeline beside the device's ops, on the
 same clock; with no profiler running no ``record_function`` is made, and
 a span costs a flag check, two clock reads and an append.
 
+A :func:`phase` is a span that can also be timed on the device inside a
+CUDA graph: while a graph is captured (:func:`capturing`), each phase
+brackets its work with two external event nodes, and each replay of the
+graph can then read its device milliseconds (:func:`phase_ms`).  Outside
+a capture a phase is a plain span, and a graph whose capture ran no
+phase holds no such nodes.
+
 There is no exporter: ``cli.py --profile`` writes the profiler's trace,
 which holds the spans, and a caller in the process reads the records
 with :func:`records`.
@@ -24,6 +31,7 @@ with :func:`records`.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import threading
@@ -39,7 +47,8 @@ PREFIX = "tputracer."
 
 _BINS = ({}, {})              # untraced, traced: name -> deque of Records
 _IDS = itertools.count(1)
-_LOCAL = threading.local()    # .top: the thread's innermost open span
+_LOCAL = threading.local()    # .top: the thread's innermost open span;
+                              # .phases: the capture's phases, or None
 _clock = time.perf_counter_ns
 # callables that fill in records whose device times came in late
 SETTLERS: list = []
@@ -112,6 +121,58 @@ class Record:
 # ``with span(name, **counts) as rec``: a Record of the enclosed stretch,
 # its counts added to with ``rec.add``
 span = Record
+
+
+class Phase(Record):
+    """A span that, inside a graph's capture (:func:`capturing`), records
+    an external event on the capturing stream as it opens and another as
+    it closes, and hands the pair to the capture."""
+
+    __slots__ = ("_end",)
+
+    def __enter__(self):
+        phases = getattr(_LOCAL, "phases", None)
+        self._end = None
+        if phases is not None:
+            begin, self._end = (
+                torch.cuda.Event(enable_timing=True, external=True)
+                for _ in range(2))
+            begin.record()
+            phases.append((self.name, begin, self._end))
+        return super().__enter__()
+
+    def __exit__(self, kind, value, tb):
+        if self._end is not None:
+            self._end.record()
+            self._end = None
+        return super().__exit__(kind, value, tb)
+
+
+# ``with phase(name, **counts) as rec``: a span whose work a CUDA graph
+# captured around it can time on the device
+phase = Phase
+
+
+@contextlib.contextmanager
+def capturing():
+    """While a CUDA graph is captured in this block: yields the list that
+    collects the (name, begin, end) events of each :func:`phase` run in
+    it, in the order they ran."""
+    outer = getattr(_LOCAL, "phases", None)
+    _LOCAL.phases = phases = []
+    try:
+        yield phases
+    finally:
+        _LOCAL.phases = outer
+
+
+def phase_ms(phases):
+    """{name: device ms} of a replay's phases, summed over each name's
+    event pairs; the events must have completed."""
+    out = {}
+    for name, begin, end in phases:
+        out[name] = out.get(name, 0.0) + begin.elapsed_time(end)
+    return out
 
 
 def spanned(name):
