@@ -6,7 +6,7 @@
 Run from the root of a checkout.  Phases, each printing one line:
 
   1. device: needs torch.cuda; prints the card's name and power limit.
-  2. build: compiles the four sources of tputracer_torch/csrc/ (one nvcc
+  2. build: compiles the five sources of tputracer_torch/csrc/ (one nvcc
      per source, started together) and builds the config-3 mesh scene on
      the card, saying which BVH builder (native or NumPy) ran.
   3. kernel: the intersection kernel against its plain PyTorch version,
@@ -176,6 +176,17 @@ Run from the root of a checkout.  Phases, each printing one line:
      must hold those launches; a second graph of the same render with
      uniform3 on the torch route must hold none and give the same image
      and ray counts bit for bit; the two graphs' replays timed in turns.
+ 19. connect: BDPT's connection kernels (csrc/connect.cu,
+     bdpt_cuda.connection_radiance_cuda) on a chunk of 2^20 paths of the
+     caustics box at 4 bounces, against connection_radiance_plain bit for
+     bit (the radiance and the shadow-ray count, balance and power
+     heuristics); the two kernels (and their table fills) timed without
+     shadow rays beside their bound (connect_bytes_per_lane over 3.35
+     TB/s), the plain version likewise, and the whole connection phase
+     (the 10 shadow-ray calls included) inside a CUDA graph.  Then the
+     benchmark's frame (512x512, 16 spp, chunks of 2^20) through
+     api.render_bdpt (eager, capture, replay): 8 launches a call
+     (bdpt_cuda.LAUNCHES), the graph holding 4 of each kernel.
 
 Phases 4, 7, 10, 12, 13 and 16 go through the same entry points, whose
 first call of a key runs eagerly, so their counted calls are eager ones;
@@ -365,12 +376,15 @@ def phase_build():
     from tputracer_torch.accel import intersect_cuda as ic
     from tputracer_torch.accel import pairs_cuda as pc
     from tputracer_torch.accel import traverse_cuda as tc
+    from tputracer_torch.integrators import bdpt_cuda
     from tputracer_torch.scene import mesh_scene
 
-    sources = ("intersect.cu", "traverse.cu", "pairs.cu", "rng.cu")
+    sources = ("intersect.cu", "traverse.cu", "pairs.cu", "rng.cu",
+               "connect.cu")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:     # one nvcc per source, together
-        for job in [pool.submit(m.load_kernel) for m in (ic, tc, pc, rng)]:
+    with ThreadPoolExecutor(5) as pool:     # one nvcc per source, together
+        for job in [pool.submit(m.load_kernel)
+                    for m in (ic, tc, pc, rng, bdpt_cuda)]:
             job.result()
     nvcc_s = time.perf_counter() - t0
     ptxas = {src: [ln.strip() for ln in
@@ -3101,6 +3115,148 @@ def phase_sampler(mesh):
     return times, renders, max_abs
 
 
+# the bytes of each vertex field a lane (bdpt_cuda.FIELDS)
+FIELD_BYTES = {"p": 12, "ng": 12, "wo": 12, "beta": 12, "pdf_fwd": 4,
+               "pdf_rev": 4, "mat": 4, "valid": 1, "delta": 1}
+# a strategy's bytes a lane between the two kernels: the first writes the
+# shadow ray's origin and direction, tmax, the contribution and the mask
+# (12 + 12 + 4 + 12 + 1); the second reads the mask, the occlusion byte
+# and the contribution (1 + 1 + 12)
+CONNECT_STRATEGY_BYTES = 41 + 14
+
+
+def connect_bytes_per_lane(n_eye, n_light, n_verts):
+    """The least bytes a lane of the two connection kernels moves: every
+    vertex field each kernel reads, once a kernel (the first reads the joined
+    vertices; the second the joined points, normals and materials, their
+    neighbours' points and normals, and the ratio chains' pdfs and
+    flags), CONNECT_STRATEGY_BYTES a strategy, and the (n, 3) sum."""
+    from tputracer_torch.integrators.bdpt_cuda import strategies
+
+    first, second = set(), set()
+    pairs = strategies(n_eye, n_light, n_verts)
+    for s, t in pairs:
+        z, y = ("z", t - 1), ("y", s - 1)
+        first |= {(z, f) for f in ("p", "ng", "wo", "beta", "mat", "valid",
+                                   "delta")}
+        first |= {(y, f) for f in ("p", "ng", "beta", "valid", "delta")}
+        second |= {(z, f) for f in ("p", "ng", "wo", "mat")}
+        second |= {(y, "p"), (y, "ng")}
+        if s >= 2:
+            first |= {(y, "wo"), (y, "mat")}
+            second |= {(y, "wo"), (y, "mat"), (("y", s - 2), "p"),
+                       (("y", s - 2), "ng")}
+        if t >= 3:
+            second |= {(("z", t - 2), "p"), (("z", t - 2), "ng")}
+        for side, top in (("z", t - 1), ("y", s - 1)):
+            for a in range(1 if side == "z" else 0, top + 1):
+                second |= {((side, a), "pdf_fwd"), ((side, a), "delta")}
+                if a > 0:
+                    second.add(((side, a - 1), "delta"))
+                if a <= top - 2:   # the two nearest come from the kernel
+                    second.add(((side, a), "pdf_rev"))
+    reads = sum(FIELD_BYTES[f] for fields in (first, second)
+                for _, f in fields)
+    return reads + CONNECT_STRATEGY_BYTES * len(pairs) + 12
+
+
+def connect_bits(scene, cfg, ys, zs):
+    """The kernels' route against connection_radiance_plain on these
+    vertices: the radiance and the shadow-ray count bit for bit, two
+    launches.  Returns the largest absolute difference."""
+    from tputracer_torch.integrators import bdpt, bdpt_cuda
+
+    got, want = {}, {}
+    before = bdpt_cuda.LAUNCHES
+    L_k = bdpt_cuda.connection_radiance_cuda(scene, cfg, ys, zs,
+                                             stats_acc=got)
+    L_p = bdpt.connection_radiance_plain(scene, cfg, ys, zs, stats_acc=want)
+    torch.cuda.synchronize()
+    check(bdpt_cuda.LAUNCHES == before + 2,
+          f"connect: {bdpt_cuda.LAUNCHES - before} launches for one call")
+    check(torch.equal(L_k, L_p), f"connect: the kernels differ from "
+                                 f"connection_radiance_plain (power="
+                                 f"{cfg.mis_power})")
+    check(torch.equal(got["rays_shadow"], want["rays_shadow"]),
+          "connect: the shadow-ray count differs")
+    check(float(L_p.sum()) > 0.0, "connect: no radiance")
+    return float((L_k - L_p).abs().max())
+
+
+def phase_connect():
+    """Phase 19: BDPT's connection kernels against the torch version on a
+    benchmark chunk, timed, and the benchmark's frame graphed."""
+    from tputracer_torch import graphs
+    from tputracer_torch.api import render_bdpt
+    from tputracer_torch.config import BdptConfig
+    from tputracer_torch.integrators import bdpt, bdpt_cuda
+    from tputracer_torch.scene import cornell_box
+
+    t0 = time.perf_counter()
+    sc = cornell_box("caustic", device="cuda")
+    n = 1 << 20
+    cfg = BdptConfig(width=1024, height=1024, spp=1, max_bounces=4,
+                     chunk_size=n)
+    uid = torch.arange(n, dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        zs = bdpt.eye_subpaths(sc, uid, cfg)
+        ys = bdpt.light_subpaths(sc, uid, cfg)
+        max_abs = max(connect_bits(sc, cfg.with_(mis_power=p), ys, zs)
+                      for p in (False, True))
+        clear = torch.zeros(n, dtype=torch.bool, device="cuda")
+
+        def unoccluded(s, o, d, tmax):
+            return clear
+
+        def kernels():
+            bdpt_cuda.connection_radiance_cuda(sc, cfg, ys, zs,
+                                               occl=unoccluded)
+
+        def plain():
+            bdpt.connection_radiance_plain(sc, cfg, ys, zs, occl=unoccluded)
+
+        def phase():
+            bdpt.connection_radiance(sc, cfg, ys, zs)
+
+        def plain_phase():
+            bdpt.connection_radiance_plain(sc, cfg, ys, zs)
+
+        nbytes = connect_bytes_per_lane(len(zs), len(ys), cfg.max_bounces + 2)
+        bound_ms, bound_by = bound(0, nbytes * n)
+        times = dict(lanes=n, bytes_per_lane=nbytes, bound_ms=bound_ms,
+                     bound_by=bound_by, ms=cuda_ms(kernels, 2, 5),
+                     device_ms=device_ms(kernels), graph_ms=graph_ms(kernels),
+                     plain_ms=cuda_ms(plain, 2, 5),
+                     plain_graph_ms=graph_ms(plain, reps=2),
+                     phase_graph_ms=graph_ms(phase),
+                     plain_phase_graph_ms=graph_ms(plain_phase, reps=2))
+    emit("connect", **times)
+    del zs, ys
+    frame = BdptConfig(width=512, height=512, spp=16, max_bounces=4,
+                       chunk_size=n)
+    graphs.clear()
+    launches = []
+    for _ in range(3):   # eager, the capture, a replay
+        before = bdpt_cuda.LAUNCHES
+        render_bdpt(sc, frame)
+        torch.cuda.synchronize()
+        launches.append(bdpt_cuda.LAUNCHES - before)
+    census = graphs.graphs()[0].census
+    nodes = {k: census[k] for k in ("connect_prepare_kernel",
+                                    "connect_finish_kernel",
+                                    "connect_table_kernel")}
+    check(launches == [8] * 3, f"connect: launches {launches} a frame, "
+                               f"want 8")
+    check(list(nodes.values()) == [4, 4, 8],
+          f"connect: the frame's graph holds {nodes}")
+    graphs.clear()
+    res = dict(frame_launches=launches, graph_nodes=nodes,
+               kernel_nodes=census["kernel_nodes"], max_abs_err=max_abs,
+               seconds=time.perf_counter() - t0)
+    emit("connect", **res)
+    return times, res
+
+
 def main():
     start = time.perf_counter()
     phase_device()
@@ -3132,6 +3288,7 @@ def main():
     free_graphs()
     phase_graphs(mesh)
     s_times, s_renders, s_max_abs = phase_sampler(mesh)
+    c_times, c_res = phase_connect()
     emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
@@ -3215,6 +3372,18 @@ def main():
         "max_abs_err": s_max_abs,
         **{k: s_times[-1][k] for k in ("lanes", "ms", "device_ms", "graph_ms",
                                        "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+    }, {
+        "name": "connect",
+        "route": "cuda",
+        "source": "tputracer_torch/csrc/connect.cu",
+        "replaces": None,    # no Pallas counterpart: XLA fuses the strategies
+        # bdpt_cuda.LAUNCHES over a replay of the benchmark's frame
+        "launches": c_res["frame_launches"][-1],
+        "max_abs_err": c_res["max_abs_err"],
+        **{k: c_times[k] for k in ("lanes", "ms", "device_ms", "graph_ms",
+                                   "plain_ms", "plain_graph_ms", "bound_ms",
+                                   "bound_by")},
         "library_ms": None,
     }]}), flush=True)
     print(card_line(), flush=True)

@@ -47,7 +47,8 @@ def test_an_eager_render_records_each_phase_once_a_chunk():
     counts = {"bdpt.eye_walk": {"verts": V}, "bdpt.light_walk": {"verts": V},
               "bdpt.s0": {},
               # t = 2..V with s = 1..V - t: 4 + 3 + 2 + 1
-              "bdpt.connect": {"strategies": 10},
+              # on the CPU the torch route: kernel 0
+              "bdpt.connect": {"strategies": 10, "kernel": 0},
               "bdpt.splat": {"strategies": V - 1}}
     recs = {name: trace.records(name) for name in PHASES}
     for name in PHASES:

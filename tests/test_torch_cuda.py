@@ -14,7 +14,9 @@ call; their spans: a replay's copy-in bytes, its device times from the
 graph's event nodes, and the kernel census with those nodes in the
 graph; the sampler kernel (csrc/rng.cu) against uniform3_plain bit for
 bit, and graphed renders through it against those through the torch
-sampler.  The ray sets are chip_smoke.py's.
+sampler; BDPT's connection kernels (csrc/connect.cu, ``-k connect``)
+against connection_radiance_plain bit for bit, graphed and eager, and a
+BDPT gradient on the torch route.  The ray sets are chip_smoke.py's.
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -1117,3 +1119,174 @@ def test_graph_renders_through_the_sampler_kernel_match_torch_sampler(
         assert torch.equal(img_k, img_p)
         assert all(torch.equal(st_k[k], st_p[k]) for k in st_p)
     assert float(kernel[-1][0].mean()) > 0.1
+
+
+def connect_vertices(name, lanes, cfg):
+    """The eye and light subpaths of the first ``lanes`` paths of a BDPT
+    render of scene ``name`` (a Cornell variant or "mesh", subdiv 4) at
+    ``cfg`` on the card: (scene, ys, zs)."""
+    from tputracer_torch.integrators.bdpt import eye_subpaths, light_subpaths
+
+    sc = (mesh_scene(subdiv=4, device="cuda") if name == "mesh"
+          else cornell_box(name, device="cuda"))
+    uid = torch.arange(lanes, dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        return (sc, light_subpaths(sc, uid, cfg), eye_subpaths(sc, uid, cfg))
+
+
+# (scene, lanes, max_bounces, mis_power): the caustic box (BASELINE config
+# 4) at a chunk of 2^16 and of 2^20 paths; config 2's mirror and glass
+# spheres, whose delta vertices suppress strategies; a clustered mesh,
+# whose shadow rays go through the traversal kernel between the kernels
+CONNECT_CASES = (
+    [("caustic", lanes, b, power) for lanes in (1 << 16, 1 << 20)
+     for b in (3, 4, 6) for power in (False, True)]
+    + [("spheres", 1 << 16, 4, False), ("spheres", 1 << 16, 6, True),
+       ("mesh", 1 << 16, 4, False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONNECT_CASES,
+                         ids=["-".join(map(str, c)) for c in CONNECT_CASES])
+def test_connect_kernels_match_plain(case):
+    """The connection kernels (csrc/connect.cu) give
+    connection_radiance_plain's radiance and shadow-ray count bit for bit,
+    in two launches; nothing in the kernels' route waits on the card."""
+    from tputracer_torch.integrators import bdpt, bdpt_cuda
+
+    need_card()
+    name, lanes, bounces, power = case
+    cfg = BdptConfig(width=1024, height=1024, spp=1, max_bounces=bounces,
+                     mis_power=power)
+    sc, ys, zs = connect_vertices(name, lanes, cfg)
+    got, want = {}, {}
+    with torch.no_grad():
+        assert bdpt.connect_on_card(sc, ys, zs)
+        launches, walks = bdpt_cuda.LAUNCHES, tc.LAUNCHES
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            L_k = bdpt.connection_radiance(sc, cfg, ys, zs, stats_acc=got)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        L_p = bdpt.connection_radiance_plain(sc, cfg, ys, zs, stats_acc=want)
+    torch.cuda.synchronize()
+    assert bdpt_cuda.LAUNCHES == launches + 2
+    n_s = (bounces + 1) * bounces // 2
+    assert tc.LAUNCHES - walks == (2 * n_s if name == "mesh" else 0)
+    assert L_k.shape == (lanes, 3) and L_k.is_contiguous()
+    assert torch.equal(L_k, L_p)
+    assert torch.equal(got["rays_shadow"], want["rays_shadow"])
+    assert float(L_p.sum()) > 0.0 and float(want["rays_shadow"]) > 0.0
+
+
+@pytest.mark.cuda
+def test_connect_kernels_refuse_what_they_do_not_take():
+    """The wrapper refuses, before any launch, vertices that are not
+    contiguous or not of their dtype, and an occlusion result that is not
+    an (n,) bool tensor."""
+    from tputracer_torch.integrators import bdpt_cuda
+
+    need_card()
+    cfg = BdptConfig(width=64, height=64, spp=1, max_bounces=3)
+    sc, ys, zs = connect_vertices("caustic", 4096, cfg)
+    launches = bdpt_cuda.LAUNCHES
+    strided = torch.empty((4096, 6), device="cuda")[:, :3]
+    for side, field, bad in ((zs, "p", strided),
+                             (ys, "beta", ys[1]["beta"].double()),
+                             (zs, "mat", zs[2]["mat"].long()),
+                             (ys, "valid", ys[0]["valid"][:-1])):
+        vert = 1 if side is zs else 0
+        kept = side[vert][field]
+        side[vert][field] = bad
+        try:
+            with pytest.raises(ValueError, match="connection_radiance_cuda"):
+                bdpt_cuda.connection_radiance_cuda(sc, cfg, ys, zs)
+        finally:
+            side[vert][field] = kept
+    with pytest.raises(ValueError, match="occlusion result 0"):
+        bdpt_cuda.connection_radiance_cuda(
+            sc, cfg, ys, zs, occl=lambda s, o, d, tmax: (tmax > 0).float())
+    assert bdpt_cuda.LAUNCHES == launches + 1   # the last call's first kernel
+
+
+@pytest.mark.cuda
+def test_graph_bdpt_connect_kernels_match_eager_plain(monkeypatch):
+    """trace_bdpt_rows of config 4's scene through graphs.call (eager
+    first call, the capture, a replay) takes the connection kernels, two
+    launches a chunk that the graph holds as kernel nodes (and two table
+    fills), and gives, bit for bit, the per-path radiance and ray counts
+    of the eager render with the connections on the torch route; each
+    chunk's bdpt.connect span counts kernel 1, and 0 on that route."""
+    from tputracer_torch import graphs, trace
+    from tputracer_torch.integrators import bdpt, bdpt_cuda
+
+    need_card()
+    graphs.clear()
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(width=64, height=64, spp=4, max_bounces=4,
+                     chunk_size=1 << 13)
+    chunks = cfg.width * cfg.height * cfg.spp // cfg.chunk_size
+    for _ in range(3):
+        trace.reset()
+        before = bdpt_cuda.LAUNCHES
+        L_g, _, st_g = graphs.call("bdpt_rows",
+                                   lambda s: bdpt_through(s, cfg), sc, cfg)
+        torch.cuda.synchronize()
+        assert bdpt_cuda.LAUNCHES - before == 2 * chunks
+    g = graphs.graphs()[0]
+    assert g.census["connect_prepare_kernel"] == chunks
+    assert g.census["connect_finish_kernel"] == chunks
+    assert g.census["connect_table_kernel"] == 2 * chunks
+    with monkeypatch.context() as m:
+        m.setattr(bdpt, "connection_radiance", bdpt.connection_radiance_plain)
+        trace.reset()
+        before = bdpt_cuda.LAUNCHES
+        L_e, _, st_e = bdpt_through(sc, cfg)
+        assert bdpt_cuda.LAUNCHES == before
+    assert torch.equal(L_g, L_e)
+    assert all(torch.equal(st_g[k], st_e[k]) for k in st_e)
+    graphs.clear()
+    trace.reset()
+    bdpt_through(sc, cfg)
+    assert [r.counts["kernel"] for r in trace.records("bdpt.connect")] == \
+        [1] * chunks
+
+
+@pytest.mark.cuda
+def test_bdpt_gradient_takes_the_torch_route(monkeypatch):
+    """A BDPT gradient on the card (albedo and emission requiring grad)
+    runs the connections on the torch route: no connection kernel, the
+    kernel count 0 on every bdpt.connect span, and the gradients of the
+    same call with connection_radiance_plain in its place (within the
+    splat's float tolerance: index_add_ adds in no fixed order)."""
+    from tputracer_torch import api, trace
+    from tputracer_torch.integrators import bdpt, bdpt_cuda
+
+    need_card()
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(width=32, height=32, spp=2, max_bounces=3)
+    target = torch.full((32, 32, 3), 0.05, device="cuda")
+    params = {k: getattr(sc, k).clone().requires_grad_()
+              for k in ("mat_albedo", "mat_emission")}
+
+    def grads():
+        return api._loss_and_grads(bdpt.render_bdpt, sc, params, target, cfg)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the kernels' route under a gradient")
+
+    trace.reset()
+    launches = bdpt_cuda.LAUNCHES
+    with monkeypatch.context() as m:
+        m.setattr(bdpt_cuda, "connection_radiance_cuda", refuse)
+        loss, g = grads()
+    assert bdpt_cuda.LAUNCHES == launches
+    assert [r.counts["kernel"] for r in trace.records("bdpt.connect")] == [0]
+    with monkeypatch.context() as m:
+        m.setattr(bdpt, "connection_radiance", bdpt.connection_radiance_plain)
+        loss_p, g_p = grads()
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0.0)
+    for k in g_p:
+        assert bool(torch.isfinite(g[k]).all()) and float(g[k].abs().sum()) > 0
+        torch.testing.assert_close(g[k], g_p[k], rtol=1e-4, atol=1e-7)

@@ -232,6 +232,13 @@ def test_progressive_pass_matches_jax(offset, step):
     ("(anonymous namespace)::fold_kernel(float const*, int const*, int)",
      "fold_kernel"),
     ("_ZN12_GLOBAL__N_115uniform3_kernelEPKxxjjxPf", "uniform3_kernel"),
+    ("_ZN43_GLOBAL__N__db82ccb5_10_connect_cu_ac0437e222connect_prepare_"
+     "kernelEPKxiiixPKiPKffPfS6_S6_S6_Ph", "connect_prepare_kernel"),
+    ("(anonymous namespace)::connect_finish_kernel(long long const*, long "
+     "long const*, int, int, int, long long, int, int const*, float const*, "
+     "unsigned char const*, float*)", "connect_finish_kernel"),
+    ("_ZN43_GLOBAL__N__db82ccb5_10_connect_cu_ac0437e220connect_table_"
+     "kernelEPxNS_10TableChunkEi", "connect_table_kernel"),
     ("(anonymous namespace)::uniform3_kernel(long long const*, long long, "
      "unsigned int, unsigned int, long long, float*)", "uniform3_kernel"),
     ("_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEE"
@@ -242,28 +249,33 @@ def test_progressive_pass_matches_jax(offset, step):
 ])
 def test_kernel_of_names_the_wrappers_kernels(symbol, kernel):
     """A graph's kernel nodes and a trace's kernels are counted by kernel
-    from their symbols: the port's six kernels, mangled or demangled, by
+    from their symbols: the port's nine kernels, mangled or demangled, by
     their own names only."""
     assert graphs.kernel_of(symbol) == kernel
 
 
 def test_kernels_map_to_the_wrappers_launch_counters():
     """Every launch counter of the kernels' wrappers is fed by one kernel
-    of graphs.KERNELS, and only the fold kernel (launched behind each
-    pair test) feeds none."""
+    of graphs.KERNELS, but bdpt_cuda's by both connection kernels; only
+    the fold kernel (launched behind each pair test) and the connection
+    table's fill feed none."""
     from tputracer_torch import rng
     from tputracer_torch.accel import intersect_cuda, pairs_cuda, \
         traverse_cuda
+    from tputracer_torch.integrators import bdpt_cuda
 
-    fed = {(m.__name__, a) for m, a in
-           (c for c in graphs.KERNELS.values() if c is not None)}
-    assert fed == {(intersect_cuda.__name__, "LAUNCHES"),
-                   (traverse_cuda.__name__, "LAUNCHES"),
-                   (pairs_cuda.__name__, "EXPAND_LAUNCHES"),
-                   (pairs_cuda.__name__, "PAIRTEST_LAUNCHES"),
-                   (rng.__name__, "LAUNCHES")}
+    fed = [(m.__name__, a) for m, a in
+           (c for c in graphs.KERNELS.values() if c is not None)]
+    assert sorted(fed) == sorted([(intersect_cuda.__name__, "LAUNCHES"),
+                                  (traverse_cuda.__name__, "LAUNCHES"),
+                                  (pairs_cuda.__name__, "EXPAND_LAUNCHES"),
+                                  (pairs_cuda.__name__, "PAIRTEST_LAUNCHES"),
+                                  (rng.__name__, "LAUNCHES"),
+                                  (bdpt_cuda.__name__, "LAUNCHES"),
+                                  (bdpt_cuda.__name__, "LAUNCHES")])
     assert [k for k, c in graphs.KERNELS.items() if c is None] == \
-        ["fold_kernel"]
+        ["fold_kernel", "connect_table_kernel"]
+    assert len(graphs._COUNTERS) == 6
     for m, a in (c for c in graphs.KERNELS.values() if c is not None):
         assert isinstance(getattr(m, a), int)
 

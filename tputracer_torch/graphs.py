@@ -76,19 +76,25 @@ from tputracer_torch.accel import _use_pairs
 from tputracer_torch.accel import intersect_cuda as _ic
 from tputracer_torch.accel import pairs_cuda as _pc
 from tputracer_torch.accel import traverse_cuda as _tc
+from tputracer_torch.integrators import bdpt_cuda as _bc
 from tputracer_torch.scene.types import CAMERA_FIELDS, TENSOR_FIELDS, Camera
 from tputracer_torch.trace import SETTLERS, capturing, phase_ms, span
 
 # the wrappers' kernels, by their names in csrc/, and the launch counter
 # each one's launches add to; the fold kernel runs behind every pair test,
-# which counts once for both
+# which counts once for both, and the connection table's fills behind the
+# connection kernels, whose one counter both of them feed
 KERNELS = {"fused_intersect_kernel": (_ic, "LAUNCHES"),
            "traverse_kernel": (_tc, "LAUNCHES"),
            "expand_kernel": (_pc, "EXPAND_LAUNCHES"),
            "pairtest_kernel": (_pc, "PAIRTEST_LAUNCHES"),
            "fold_kernel": None,
-           "uniform3_kernel": (_rng, "LAUNCHES")}
-_COUNTED = [k for k, c in KERNELS.items() if c is not None]
+           "uniform3_kernel": (_rng, "LAUNCHES"),
+           "connect_prepare_kernel": (_bc, "LAUNCHES"),
+           "connect_finish_kernel": (_bc, "LAUNCHES"),
+           "connect_table_kernel": None}
+# the launch counters, each once
+_COUNTERS = list(dict.fromkeys(c for c in KERNELS.values() if c is not None))
 
 # tensors copied into graphs' static inputs since the last reset
 COPIES = 0
@@ -204,12 +210,12 @@ def census(raw_graph):
 
 
 def _counts():
-    return [getattr(*KERNELS[k]) for k in _COUNTED]
+    return [getattr(*c) for c in _COUNTERS]
 
 
 def _set_counts(values):
-    for k, v in zip(_COUNTED, values):
-        setattr(*KERNELS[k], v)
+    for c, v in zip(_COUNTERS, values):
+        setattr(*c, v)
 
 
 def _capture_stream(device):
@@ -278,14 +284,16 @@ class Graph:
                     torch.cuda.synchronize(dev)
         finally:
             _set_counts(before)
-        self.launches = [self.census[k] for k in _COUNTED]
+        self.launches = [sum(self.census[k] for k, c in KERNELS.items()
+                             if c == counter) for counter in _COUNTERS]
         if (self.launches != recorded or self.census["fold_kernel"]
                 != self.census["pairtest_kernel"]):
+            by_counter = {f"{m.__name__}.{a}": n
+                          for (m, a), n in zip(_COUNTERS, recorded)}
             raise RuntimeError(
                 f"CUDA graph of {name}: its kernel nodes "
                 f"{ {k: self.census[k] for k in KERNELS} } are not the "
-                f"launches its capture recorded "
-                f"{dict(zip(_COUNTED, recorded))}")
+                f"launches its capture recorded {by_counter}")
         self.stream = stream
         # the per-stream scratch the capture baked in (B2's ray counter,
         # the pair test's fold keys) lives as long as the graph

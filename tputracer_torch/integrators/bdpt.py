@@ -8,7 +8,9 @@ BASELINE config 4 (the caustics scene).  For a chunk of paths:
     forward/reverse area-measure pdfs, material, delta flag, valid;
   * every (s, t) connection is one masked batch (a BSDF eval at both
     endpoints, one batched shadow ray, a vectorized MIS ratio chain),
-    unrolled in Python loops;
+    unrolled in Python loops; on the card two CUDA kernels a chunk
+    compute the same bits around the shadow-ray calls
+    (``integrators/bdpt_cuda.py``, ``csrc/connect.cu``);
   * t=1 light tracing splats light-subpath vertices through the pinhole
     onto the film with ``index_add_`` into an (H*W + 1, 3) buffer whose
     last row takes the masked lanes.
@@ -28,8 +30,9 @@ bits may change from run to run; the per-path radiance ``L_own`` may not.
 A chunk's five phases are spans (``tputracer_torch.trace.phase``):
 ``bdpt.eye_walk`` and ``bdpt.light_walk`` (count ``verts``), ``bdpt.s0``,
 ``bdpt.connect`` and ``bdpt.splat`` (count ``strategies``), each with the
-count ``lanes``; inside a CUDA graph's capture each also leaves event
-nodes that time it on the device at every replay.
+count ``lanes``, and ``bdpt.connect`` with ``kernel`` (1 on the card's
+route, 0 on the torch route); inside a CUDA graph's capture each also
+leaves event nodes that time it on the device at every replay.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from tputracer_torch import geometry as g
 from tputracer_torch import rng
 from tputracer_torch.accel import intersect, occluded
 from tputracer_torch.bsdf import emitted, eval_bsdf, pdf_bsdf, sample_bsdf
+from tputracer_torch.integrators import bdpt_cuda
 from tputracer_torch.integrators.pt import camera_rays, film_from_radiance
 from tputracer_torch.lights import pdf_light_area, sample_light
 from tputracer_torch.lookup import fetch_int
@@ -309,9 +313,37 @@ def s0_radiance(scene, cfg, zs):
     return L_own
 
 
+def connect_on_card(scene, ys, zs):
+    """Whether :func:`connection_radiance` takes the card's kernels:
+    vertices on a CUDA device and no gradient wanted.  CPU vertices, and a
+    call with grad enabled where a vertex tensor or ``scene.mat_albedo``
+    requires grad, take the torch version (the kernels have no backward);
+    any other device raises."""
+    dev = zs[0]["beta"].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no connection route for device {dev}")
+    return not (torch.is_grad_enabled() and (
+        scene.mat_albedo.requires_grad
+        or any(x.requires_grad for v in zs + ys for x in v.values())))
+
+
 def connection_radiance(scene, cfg, ys, zs, occl=None, stats_acc=None):
+    """s>=1, t>=2 vertex-connection strategies: (n, 3) radiance summed in
+    (t, s) order, one shadow-ray call per (s, t).  On the card's route
+    (:func:`connect_on_card`) two CUDA kernels around those calls
+    (``bdpt_cuda``), elsewhere :func:`connection_radiance_plain`; the same
+    bits either way."""
+    fn = (bdpt_cuda.connection_radiance_cuda
+          if connect_on_card(scene, ys, zs) else connection_radiance_plain)
+    return fn(scene, cfg, ys, zs, occl=occl, stats_acc=stats_acc)
+
+
+def connection_radiance_plain(scene, cfg, ys, zs, occl=None, stats_acc=None):
     """s>=1, t>=2 vertex-connection strategies: one masked batch and one
-    shadow-ray batch per (s, t)."""
+    shadow-ray batch per (s, t).  The CPU and gradient route, and the
+    oracle of the card's kernels."""
     cam = scene.camera
     occl = occluded if occl is None else occl
     eps = scene.eps
@@ -445,8 +477,9 @@ def trace_bdpt(scene, uid, cfg, intersect_fn=None, occluded_fn=None):
     V = cfg.max_bounces + 2
     with phase("bdpt.s0", lanes=n):
         L_s0 = s0_radiance(scene, cfg, zs)
-    with phase("bdpt.connect", lanes=n, strategies=sum(
-            min(len(ys), V - t) for t in range(2, len(zs) + 1))):
+    with phase("bdpt.connect", lanes=n,
+               strategies=len(bdpt_cuda.strategies(len(zs), len(ys), V)),
+               kernel=int(connect_on_card(scene, ys, zs))):
         L_own = L_s0 + connection_radiance(
             scene, cfg, ys, zs, occl=occluded_fn, stats_acc=acc)
     with phase("bdpt.splat", lanes=n, strategies=min(len(ys), V - 1)):
