@@ -259,10 +259,12 @@ def per_call(fn, reps=20):
 def parent_modules(root):
     """The modules of the checkout at ``root``, as a namespace: cl
     (clustered), tc (traverse_cuda), ic (intersect_cuda), pairs and pc
-    (pairs_cuda) of its accel; its api, config, fit, scene and the two
-    integrators, pt and bdpt.  Its package is imported under its own name
-    while this one's modules are set aside, and its three kernel sources
-    are built (into its own csrc/build) before they are put back."""
+    (pairs_cuda) of its accel; its api, config, fit, scene, the two
+    integrators, pt and bdpt, and cb (cuda_build, whose library
+    declarations and launch counts it needs).  Its package is imported
+    under its own name while this one's modules are set aside, and its
+    three kernel sources are built (into its own csrc/build) before they
+    are put back."""
     name = "tputracer_torch"
     ours = {k: sys.modules.pop(k) for k in list(sys.modules)
             if k == name or k.startswith(name + ".")}
@@ -270,7 +272,7 @@ def parent_modules(root):
     try:
         mods = this_modules()
         for mod in (mods.tc, mods.ic, mods.pc):
-            mod.load_kernel()
+            mod.LIB.load()
     finally:
         sys.path.pop(0)
         for k in [k for k in sys.modules
@@ -283,14 +285,15 @@ def parent_modules(root):
 def this_modules():
     """The modules of the tputracer_torch that imports now, named as
     parent_modules names them."""
-    from tputracer_torch import api, config, fit, scene
+    from tputracer_torch import api, config, cuda_build, fit, scene
     from tputracer_torch.accel import (clustered, intersect_cuda, pairs,
                                        pairs_cuda, traverse_cuda)
     from tputracer_torch.integrators import bdpt, pt
 
     return SimpleNamespace(cl=clustered, tc=traverse_cuda, ic=intersect_cuda,
                            pairs=pairs, pc=pairs_cuda, api=api, config=config,
-                           fit=fit, scene=scene, pt=pt, bdpt=bdpt)
+                           fit=fit, scene=scene, pt=pt, bdpt=bdpt,
+                           cb=cuda_build)
 
 
 def same_bits(a, b):
@@ -894,11 +897,12 @@ def render_bits(old):
             else:
                 cfg = m.config.BdptConfig(**kw)
                 run = functools.partial(m.bdpt.render_bdpt, sc, cfg)
-            m.ic.LAUNCHES = m.tc.LAUNCHES = 0
+            m.cb.LAUNCHES.clear()
             img, stats = run()
             torch.cuda.synchronize()
-            launches = {"fused_intersect": m.ic.LAUNCHES,
-                        "traverse": m.tc.LAUNCHES}
+            launches = {"fused_intersect":
+                        m.cb.LAUNCHES["fused_intersect_kernel"],
+                        "traverse": m.cb.LAUNCHES["traverse_kernel"]}
             bits = img
             if kind == "bdpt":
                 n = cfg.width * cfg.height * cfg.spp
@@ -1181,7 +1185,7 @@ def graph_profiles():
     events than its graph has kernel nodes, or other launches of the
     port's kernels than its graph holds."""
     from chip_smoke import BDPT_CFG
-    from tputracer_torch import api, graphs
+    from tputracer_torch import api, cuda_build, graphs
     from tputracer_torch.config import BdptConfig, RenderConfig
     from tputracer_torch.integrators import bdpt
     from tputracer_torch.integrators.pt import render_pt
@@ -1213,7 +1217,7 @@ def graph_profiles():
         for k, fn in runs.items():
             prof = traced(fn)
             n, busy_ms, span_ms, top, kernel_ms = busy(prof, kernel)
-            ours = dict.fromkeys(graphs.KERNELS, 0)
+            ours = dict.fromkeys(cuda_build.kernels(), 0)
             for e in prof.events():
                 if e.device_type == torch.autograd.DeviceType.CUDA:
                     if (name_k := graphs.kernel_of(e.name)) is not None:
@@ -1230,7 +1234,7 @@ def graph_profiles():
                 line.update(graph_kernel_nodes=kernel_nodes,
                             graph_nodes=nodes,
                             graph_launches={q: census[q]
-                                            for q in graphs.KERNELS})
+                                            for q in cuda_build.kernels()})
                 line["trace_complete"] = ours == line["graph_launches"]
             print(json.dumps(line), flush=True)
             if k == "graphed" and n < kernel_nodes:
@@ -1238,7 +1242,7 @@ def graph_profiles():
                     f"{name}: the trace of a graphed render holds {n} device "
                     f"events, its graph {kernel_nodes} kernels")
             if k == "graphed" and any(
-                    ours[q] > census[q] for q in graphs.KERNELS):
+                    ours[q] > census[q] for q in cuda_build.kernels()):
                 raise SystemExit(
                     f"{name}: the trace of a graphed render launched {ours}, "
                     f"its graph holds {line['graph_launches']}")
@@ -1280,8 +1284,8 @@ def main():
     if opts.sass:
         from tputracer_torch.accel import pairs_cuda as pc
 
-        ic.load_kernel()
-        pc.load_kernel()
+        ic.LIB.load()
+        pc.LIB.load()
         for source, function, marker in (
                 ("intersect.cu", "fused_intersect", "MUFU.RCP"),
                 ("pairs.cu", "expand_kernelILi8ELi5E", "FMNMX"),

@@ -186,7 +186,8 @@ Run from the root of a checkout.  Phases, each printing one line:
      (the 10 shadow-ray calls included) inside a CUDA graph.  Then the
      benchmark's frame (512x512, 16 spp, chunks of 2^20) through
      api.render_bdpt (eager, capture, replay): 8 launches a call
-     (bdpt_cuda.LAUNCHES), the graph holding 4 of each kernel.
+     (cuda_build.LAUNCHES of the two kernels), the graph holding 4 of each
+     kernel.
 
 Phases 4, 7, 10, 12, 13 and 16 go through the same entry points, whose
 first call of a key runs eagerly, so their counted calls are eager ones;
@@ -383,7 +384,7 @@ def phase_build():
                "connect.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(5) as pool:     # one nvcc per source, together
-        for job in [pool.submit(m.load_kernel)
+        for job in [pool.submit(m.LIB.load)
                     for m in (ic, tc, pc, rng, bdpt_cuda)]:
             job.result()
     nvcc_s = time.perf_counter() - t0
@@ -663,7 +664,6 @@ def phase_kernel():
 
 
 def phase_render():
-    from tputracer_torch.accel import intersect_cuda as ic
     from tputracer_torch.accel import intersect_plain, occluded_plain
     from tputracer_torch.api import render
     from tputracer_torch.config import RenderConfig
@@ -677,10 +677,10 @@ def phase_render():
     want = n_chunks * (2 * cfg.max_bounces + 1)
 
     # the main path, counted: exactly this one call to render
-    ic.LAUNCHES = 0
+    zero_counts()
     img, stats = render(scene, cfg, device="cuda")
     torch.cuda.synchronize()
-    launches = ic.LAUNCHES
+    launches = launch_counts()["fused_intersect"]
     check(launches == want, f"render launched the kernel {launches} times, "
                             f"expected {want}")
     check(tuple(img.shape) == (cfg.height, cfg.width, 3),
@@ -1057,8 +1057,6 @@ def phase_traverse(mesh):
 def phase_mesh_render(mesh):
     """The config-3 path: api.render of the 102,410-triangle mesh."""
     from tputracer_torch.accel import intersect_clustered, occluded_clustered
-    from tputracer_torch.accel import intersect_cuda as ic
-    from tputracer_torch.accel import traverse_cuda as tc
     from tputracer_torch.api import render
     from tputracer_torch.config import RenderConfig
     from tputracer_torch.integrators.pt import render_pt
@@ -1070,11 +1068,11 @@ def phase_mesh_render(mesh):
 
     # the config-3 path, counted: exactly this one call to render
     torch.cuda.reset_peak_memory_stats()
-    tc.LAUNCHES = 0
-    ic.LAUNCHES = 0
+    zero_counts()
     img, stats = render(mesh, cfg, device="cuda")
     torch.cuda.synchronize()
-    launches, fused = tc.LAUNCHES, ic.LAUNCHES
+    counts = launch_counts()
+    launches, fused = counts["traverse"], counts["fused_intersect"]
     check(launches == want, f"mesh render launched the traversal kernel "
                             f"{launches} times, expected {want}")
     check(fused == 0, f"mesh render launched the intersection kernel "
@@ -1386,9 +1384,6 @@ def phase_pairs_render(mesh, default_img):
     """The config-3 render through the pair route (TPUTRACER_PAIRS=1, set
     for this phase only), counted, checked and timed in turns with the
     default route."""
-    from tputracer_torch.accel import intersect_cuda as ic
-    from tputracer_torch.accel import pairs_cuda as pc
-    from tputracer_torch.accel import traverse_cuda as tc
     from tputracer_torch.api import render
     from tputracer_torch.config import RenderConfig
     from tputracer_torch.integrators.pt import render_pt
@@ -1407,13 +1402,14 @@ def phase_pairs_render(mesh, default_img):
     try:
         set_pairs(True)
         # the pair route, counted: exactly this one call to render
-        pc.EXPAND_LAUNCHES = pc.PAIRTEST_LAUNCHES = 0
-        tc.LAUNCHES = ic.LAUNCHES = 0
+        zero_counts()
         img, stats = render(mesh, cfg, device="cuda")
         torch.cuda.synchronize()
-        launches = {"expand": pc.EXPAND_LAUNCHES,
-                    "pair_test": pc.PAIRTEST_LAUNCHES,
-                    "traverse": tc.LAUNCHES, "fused_intersect": ic.LAUNCHES}
+        counts = launch_counts()
+        launches = {"expand": counts["pair_expand"],
+                    "pair_test": counts["pair_test"],
+                    "traverse": counts["traverse"],
+                    "fused_intersect": counts["fused_intersect"]}
         check(launches == {"expand": want, "pair_test": want,
                            "traverse": want, "fused_intersect": 0},
               f"pairs render launched {launches}, expected {want} of each "
@@ -1582,24 +1578,42 @@ def phase_bdpt_kernel():
     return results
 
 
-def launch_counts():
-    """The launch counters of the four kernels, read now."""
-    from tputracer_torch.accel import intersect_cuda as ic
-    from tputracer_torch.accel import pairs_cuda as pc
-    from tputracer_torch.accel import traverse_cuda as tc
+# the intersection routes' kernels, by the names this script gives their
+# launch counts
+COUNTER_OF = {"fused_intersect_kernel": "fused_intersect",
+              "traverse_kernel": "traverse", "expand_kernel": "pair_expand",
+              "pairtest_kernel": "pair_test"}
 
-    return {"fused_intersect": ic.LAUNCHES, "traverse": tc.LAUNCHES,
-            "pair_expand": pc.EXPAND_LAUNCHES,
-            "pair_test": pc.PAIRTEST_LAUNCHES}
+
+def launch_counts():
+    """cuda_build's launch counts of the four kernels, read now."""
+    from tputracer_torch.cuda_build import LAUNCHES
+
+    return {c: LAUNCHES[k] for k, c in COUNTER_OF.items()}
 
 
 def zero_counts():
-    from tputracer_torch.accel import intersect_cuda as ic
-    from tputracer_torch.accel import pairs_cuda as pc
-    from tputracer_torch.accel import traverse_cuda as tc
+    """Set cuda_build's launch counts of the four kernels to 0."""
+    from tputracer_torch.cuda_build import LAUNCHES
 
-    ic.LAUNCHES = tc.LAUNCHES = 0
-    pc.EXPAND_LAUNCHES = pc.PAIRTEST_LAUNCHES = 0
+    for k in COUNTER_OF:
+        LAUNCHES[k] = 0
+
+
+def sampler_launches():
+    """cuda_build's launch count of the sampler kernel."""
+    from tputracer_torch.cuda_build import LAUNCHES
+
+    return LAUNCHES["uniform3_kernel"]
+
+
+def connect_launches():
+    """cuda_build's launch counts of the two connection kernels, summed
+    (their table fills are not counted)."""
+    from tputracer_torch.cuda_build import LAUNCHES
+
+    return (LAUNCHES["connect_prepare_kernel"]
+            + LAUNCHES["connect_finish_kernel"])
 
 
 def bdpt_once(name, scene, cfg, want):
@@ -1840,7 +1854,6 @@ def phase_fit():
     import tempfile
 
     from tputracer_torch import fit as tfit
-    from tputracer_torch import rng
     from tputracer_torch.accel import intersect_plain, occluded_plain
     from tputracer_torch.api import grad_render
     from tputracer_torch.config import BdptConfig, RenderConfig
@@ -1868,13 +1881,13 @@ def phase_fit():
                         + max(0, cfg.max_bounces - cfg.rr_start))
     with tempfile.TemporaryDirectory() as tmp:
         # the main path, counted: exactly this one call to fit
-        sampler_before = rng.LAUNCHES
+        sampler_before = sampler_launches()
         (_, p_full, h_full), launches = counted(
             lambda: tfit.fit(scene, target, steps=steps,
                              checkpoint_path=os.path.join(tmp, "full.npz"),
                              **kw),
             dict(none, fused_intersect=steps * per_step), "config-5 fit")
-        sampler_step = (rng.LAUNCHES - sampler_before) / steps
+        sampler_step = (sampler_launches() - sampler_before) / steps
         check(sampler_step == draws, f"config-5 fit: {sampler_step} sampler "
                                      f"launches a step, want {draws}")
         losses = [h["loss"] for h in h_full]
@@ -2592,7 +2605,7 @@ def phase_dist(c1_img, c3_img, c3_stats, c4_img):
         t0 = time.perf_counter()
         cap = mesh_scene(device="cpu", **CAP_SCENE)
         cap_build_s = time.perf_counter() - t0
-        _, _, max_clusters = tc.load_kernel()
+        max_clusters = tc.LIB.limit("tpt_traverse_max_clusters")
         check(cap.n_clusters > max_clusters,
               f"capacity scene: {cap.n_clusters} clusters, the kernel "
               f"stages {max_clusters}")
@@ -2722,15 +2735,9 @@ def graph_paths(mesh):
     ]
 
 
-# the launch counters' names for graphs.KERNELS' kernels
-COUNTER_OF = {"fused_intersect_kernel": "fused_intersect",
-              "traverse_kernel": "traverse", "expand_kernel": "pair_expand",
-              "pairtest_kernel": "pair_test"}
-
-
 def by_counter(kernels):
-    """graphs.KERNELS' counts renamed to the launch counters' names; the
-    fold kernel must run as often as the pair test."""
+    """Counts by kernel (a graph's census) renamed to launch_counts'
+    names; the fold kernel must run as often as the pair test."""
     check(kernels["fold_kernel"] == kernels["pairtest_kernel"],
           f"fold kernels {kernels['fold_kernel']}, pair tests "
           f"{kernels['pairtest_kernel']}")
@@ -2738,13 +2745,13 @@ def by_counter(kernels):
 
 
 def traced_launches(fn, want, name, tries=3):
-    """The wrappers' kernels (graphs.KERNELS, by the launch counters'
-    names) and all device events in torch.profiler traces of calls of
+    """The declared kernels (by launch_counts' names) and all device
+    events in torch.profiler traces of calls of
     fn, until one holds exactly ``want`` (at most ``tries``).  A trace
     may drop a kernel's record (CUPTI's buffers), never add one: every
     trace must hold at most ``want`` of each kernel, and one exactly
     ``want``.  Returns [(counts, device events)] of each trace."""
-    from tputracer_torch import graphs
+    from tputracer_torch import cuda_build, graphs
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -2754,7 +2761,7 @@ def traced_launches(fn, want, name, tries=3):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             torch.cuda.synchronize()
-        out, events = dict.fromkeys(graphs.KERNELS, 0), 0
+        out, events = dict.fromkeys(cuda_build.kernels(), 0), 0
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 events += 1
@@ -2971,12 +2978,13 @@ def sampler_bits(n, seed):
     draws = [(0, 0), (25, 7), (2**31 + 5, 2**32 - 1), (2**32 - 1, 2**31)]
     err = 0.0
     for salt, sd in draws:
-        before = rng.LAUNCHES
+        before = sampler_launches()
         got = rng.uniform3_cuda(uid, salt, sd)
         want = rng.uniform3_plain(uid, salt, sd)
         torch.cuda.synchronize()
-        check(rng.LAUNCHES == before + 1,
-              f"sampler: {rng.LAUNCHES - before} launches for one call")
+        check(sampler_launches() == before + 1,
+              f"sampler: {sampler_launches() - before} launches for one "
+              f"call")
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               f"sampler: the kernel differs from uniform3_plain at n={n}, "
               f"salt={salt}, seed={sd}")
@@ -3046,11 +3054,12 @@ def sampler_render(name, sc, cfg, draws):
     calls = []
     for _ in range(3):   # eager, the capture, a replay
         trace.reset()
-        before = rng.LAUNCHES
+        before = sampler_launches()
         out = render(sc, cfg)
         torch.cuda.synchronize()
         spans = trace.records("rng.uniform3")
-        calls.append(dict(launches=rng.LAUNCHES - before, draws=len(spans),
+        calls.append(dict(launches=sampler_launches() - before,
+                          draws=len(spans),
                           through_kernel=sum(r.counts["kernel"]
                                              for r in spans)))
     check([c["launches"] for c in calls] == [draws] * 3,
@@ -3062,12 +3071,12 @@ def sampler_render(name, sc, cfg, draws):
     check(g_kernel.census["uniform3_kernel"] == draws,
           f"{name}: the graph holds {g_kernel.census['uniform3_kernel']} "
           f"sampler kernels, want {draws}")
-    before = rng.LAUNCHES
+    before = sampler_launches()
     for _ in range(3):
         plain = graphs.call("sampler_torch_route", torch_sampler, sc, cfg)
     torch.cuda.synchronize()
-    check(rng.LAUNCHES == before, f"{name}: the torch route launched the "
-                                  f"kernel")
+    check(sampler_launches() == before,
+          f"{name}: the torch route launched the kernel")
     g_plain = graphs.graphs()[1]
     check(g_plain.census["uniform3_kernel"] == 0,
           f"{name}: the torch route's graph holds sampler kernels")
@@ -3167,13 +3176,13 @@ def connect_bits(scene, cfg, ys, zs):
     from tputracer_torch.integrators import bdpt, bdpt_cuda
 
     got, want = {}, {}
-    before = bdpt_cuda.LAUNCHES
+    before = connect_launches()
     L_k = bdpt_cuda.connection_radiance_cuda(scene, cfg, ys, zs,
                                              stats_acc=got)
     L_p = bdpt.connection_radiance_plain(scene, cfg, ys, zs, stats_acc=want)
     torch.cuda.synchronize()
-    check(bdpt_cuda.LAUNCHES == before + 2,
-          f"connect: {bdpt_cuda.LAUNCHES - before} launches for one call")
+    check(connect_launches() == before + 2,
+          f"connect: {connect_launches() - before} launches for one call")
     check(torch.equal(L_k, L_p), f"connect: the kernels differ from "
                                  f"connection_radiance_plain (power="
                                  f"{cfg.mis_power})")
@@ -3237,10 +3246,10 @@ def phase_connect():
     graphs.clear()
     launches = []
     for _ in range(3):   # eager, the capture, a replay
-        before = bdpt_cuda.LAUNCHES
+        before = connect_launches()
         render_bdpt(sc, frame)
         torch.cuda.synchronize()
-        launches.append(bdpt_cuda.LAUNCHES - before)
+        launches.append(connect_launches() - before)
     census = graphs.graphs()[0].census
     nodes = {k: census[k] for k in ("connect_prepare_kernel",
                                     "connect_finish_kernel",
@@ -3365,7 +3374,7 @@ def main():
         "route": "cuda",
         "source": "tputracer_torch/csrc/rng.cu",
         "replaces": None,    # no Pallas counterpart: XLA fuses the hash
-        # rng.LAUNCHES over a replay of each graph
+        # the sampler's launches over a replay of each graph
         "launches": s_renders[0]["calls"][-1]["launches"],
         "launches_config3": s_renders[1]["calls"][-1]["launches"],
         "launches_fit_step": sampler_fit_step,
@@ -3378,7 +3387,7 @@ def main():
         "route": "cuda",
         "source": "tputracer_torch/csrc/connect.cu",
         "replaces": None,    # no Pallas counterpart: XLA fuses the strategies
-        # bdpt_cuda.LAUNCHES over a replay of the benchmark's frame
+        # the connection kernels' launches over a replay of the frame
         "launches": c_res["frame_launches"][-1],
         "max_abs_err": c_res["max_abs_err"],
         **{k: c_times[k] for k in ("lanes", "ms", "device_ms", "graph_ms",

@@ -11,7 +11,7 @@ version's loop order.  The kernels themselves run on the card only
 import pytest
 import torch
 
-from tputracer_torch import trace
+from tputracer_torch import cuda_build, trace
 from tputracer_torch.config import BdptConfig
 from tputracer_torch.integrators import bdpt, bdpt_cuda
 from tputracer_torch.scene import cornell_box
@@ -40,11 +40,11 @@ def test_cpu_vertices_take_the_torch_route(name, power):
     cfg = CFG.with_(mis_power=power)
     sc, ys, zs = vertices(name, cfg=cfg)
     assert not bdpt.connect_on_card(sc, ys, zs)
-    launches = bdpt_cuda.LAUNCHES
+    launches = cuda_build.LAUNCHES.copy()
     got, want = {}, {}
     L = bdpt.connection_radiance(sc, cfg, ys, zs, stats_acc=got)
     L_p = bdpt.connection_radiance_plain(sc, cfg, ys, zs, stats_acc=want)
-    assert bdpt_cuda.LAUNCHES == launches
+    assert cuda_build.LAUNCHES == launches
     assert torch.equal(L, L_p) and torch.equal(got["rays_shadow"],
                                                want["rays_shadow"])
     assert float(L.sum()) > 0.0
@@ -71,7 +71,7 @@ def test_the_wrapper_refuses_before_any_build(monkeypatch):
     def no_build():
         raise AssertionError("built the kernels")
 
-    monkeypatch.setattr(bdpt_cuda, "load_kernel", no_build)
+    monkeypatch.setattr(bdpt_cuda.LIB, "load", no_build)
     sc, ys, zs = vertices(lanes=64)
     with pytest.raises(ValueError, match="want CUDA vertices, got cpu"):
         bdpt_cuda.connection_radiance_cuda(sc, CFG, ys, zs)

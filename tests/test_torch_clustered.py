@@ -31,6 +31,7 @@ from tputracer.accel import occluded_clustered as jax_occluded_clustered
 from tputracer.accel.traverse_tpu import intersect_pallas, occluded_pallas
 from tputracer.scene.types import make_camera as jax_make_camera
 from tputracer.scene.types import make_scene as jax_make_scene
+from tputracer_torch import cuda_build
 from tputracer_torch.accel import (intersect, intersect_brute,
                                    intersect_clustered, occluded,
                                    occluded_brute, occluded_clustered)
@@ -356,8 +357,8 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     o, d = t_args(*random_rays(8, seed=42))
     tmin, tmax = torch.zeros(8), torch.full((8,), BIG)
     bp0 = torch.full((8,), -1, dtype=torch.int32)
-    launches = tc.LAUNCHES
+    launches = cuda_build.LAUNCHES["traverse_kernel"]
     with pytest.raises(ValueError):
         tc.traverse_cuda(o, d, tmin, tmax, tmax.clone(), bp0,
                          *cl.traverse_args(ts), leaf=ts.leaf_size)
-    assert tc.LAUNCHES == launches
+    assert cuda_build.LAUNCHES["traverse_kernel"] == launches

@@ -31,9 +31,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (bounce_rays, box_soup, dead_rays, face_rays,
-                        fallback_input, holey_tables, random_rays, room_rays,
-                        run_rays, soup_rays, soup_scene, tie_pairs)
+from chip_smoke import (bounce_rays, box_soup, connect_launches, dead_rays,
+                        face_rays, fallback_input, holey_tables, random_rays,
+                        room_rays, run_rays, soup_rays, soup_scene, tie_pairs)
 from tputracer_torch.accel import clustered as cl
 from tputracer_torch.accel import intersect_cuda as ic
 from tputracer_torch.accel import pairs
@@ -43,11 +43,14 @@ from tputracer_torch.accel import (intersect_clustered, intersect_plain,
                                    occluded_clustered, occluded_plain)
 from tputracer_torch.api import render_bdpt, render_bdpt_progressive
 from tputracer_torch.config import BdptConfig, RenderConfig
+from tputracer_torch.cuda_build import LAUNCHES
 from tputracer_torch.integrators.bdpt import trace_bdpt_rows
 from tputracer_torch.integrators.pt import render_pt
 from tputracer_torch.scene import cornell_box, make_scene, mesh_scene
 
 BIG = 3.0e38
+# the two intersection kernels' names in cuda_build.LAUNCHES
+B1, B2 = "fused_intersect_kernel", "traverse_kernel"
 
 
 def need_card():
@@ -64,11 +67,11 @@ def test_cuda_kernel_matches_plain(variant):
     need_card()
     args = ic.scene_args(cornell_box(variant, device="cuda"))
     o, d, tmin, tmax, tocc = random_rays(100_003, seed=7)
-    launches = ic.LAUNCHES
+    launches = LAUNCHES[B1]
     t_k, p_k = ic.fused_intersect_cuda(o, d, tmin, tmax, *args)
     t_p, p_p = ic.fused_intersect_plain(o, d, tmin, tmax, *args)
     torch.cuda.synchronize()
-    assert ic.LAUNCHES == launches + 1
+    assert LAUNCHES[B1] == launches + 1
     assert torch.equal(p_k, p_p)
     assert torch.equal(t_k, t_p)
     assert torch.equal(t_k[p_k < 0], tmax[p_k < 0])
@@ -114,13 +117,13 @@ def test_cuda_kernel_hard_cases(case):
     render; rays that are all dead."""
     need_card()
     closest, shadow, args = hard_case(case)
-    launches = ic.LAUNCHES
+    launches = LAUNCHES[B1]
     t_k, p_k = ic.fused_intersect_cuda(*closest, *args)
     t_p, p_p = ic.fused_intersect_plain(*closest, *args)
     t_a, _ = ic.fused_intersect_cuda(*shadow, *args, any_hit=True)
     t_q, _ = ic.fused_intersect_plain(*shadow, *args)
     torch.cuda.synchronize()
-    assert ic.LAUNCHES == launches + 2
+    assert LAUNCHES[B1] == launches + 2
     assert torch.equal(p_k, p_p)
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
     assert torch.equal(t_a < shadow[3], t_q < shadow[3])
@@ -142,10 +145,10 @@ def test_cuda_render_goes_through_kernel():
     need_card()
     sc = cornell_box("boxes", device="cuda")
     cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=4)
-    launches = ic.LAUNCHES
+    launches = LAUNCHES[B1]
     img_k, _ = render_pt(sc, cfg)
     torch.cuda.synchronize()
-    assert ic.LAUNCHES == launches + 2 * cfg.max_bounces + 1
+    assert LAUNCHES[B1] == launches + 2 * cfg.max_bounces + 1
     img_p, _ = render_pt(sc, cfg, intersect_fn=intersect_plain,
                          occluded_fn=occluded_plain)
     assert torch.equal(img_k, img_p)
@@ -165,13 +168,13 @@ def test_traverse_kernel_matches_plain(any_hit):
         tmax = tocc
     bt0 = tmax.clone()
     bp0 = torch.full(tmax.shape, -1, dtype=torch.int32, device="cuda")
-    launches = tc.LAUNCHES
+    launches = LAUNCHES[B2]
     t_k, p_k = tc.traverse_cuda(o, d, tmin, tmax, bt0, bp0, *args, leaf=128,
                                 any_hit=any_hit)
     t_p, p_p = cl._traverse(o, d, tmin, tmax, bt0, bp0, *args, leaf=128,
                             any_hit=any_hit)
     torch.cuda.synchronize()
-    assert tc.LAUNCHES == launches + 1
+    assert LAUNCHES[B2] == launches + 1
     assert torch.equal(p_k, p_p)
     assert torch.equal(t_k, t_p)
     assert float((p_k >= 0).float().mean()) > 0.2
@@ -201,11 +204,11 @@ def test_cuda_mesh_render_goes_through_traversal_kernel():
     sc = mesh_scene(subdiv=4, device="cuda")
     cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8,
                        rr_start=3)
-    launches, fused = tc.LAUNCHES, ic.LAUNCHES
+    launches, fused = LAUNCHES[B2], LAUNCHES[B1]
     img_k, _ = render_pt(sc, cfg)
     torch.cuda.synchronize()
-    assert tc.LAUNCHES == launches + 2 * cfg.max_bounces + 1
-    assert ic.LAUNCHES == fused
+    assert LAUNCHES[B2] == launches + 2 * cfg.max_bounces + 1
+    assert LAUNCHES[B1] == fused
     img_p, _ = render_pt(sc, cfg, intersect_fn=intersect_clustered,
                          occluded_fn=occluded_clustered)
     assert torch.equal(img_k, img_p)
@@ -250,12 +253,12 @@ def test_traverse_kernel_hard_rays(case):
     walk_in, args, leaf = walk_case(case)
     modes = (False,) if case == "fallback" else (False, True)
     for any_hit in modes:
-        launches = tc.LAUNCHES
+        launches = LAUNCHES[B2]
         t_k, p_k = tc.traverse_cuda(*walk_in, *args, leaf=leaf,
                                     any_hit=any_hit)
         t_p, p_p = cl._traverse(*walk_in, *args, leaf=leaf, any_hit=any_hit)
         torch.cuda.synchronize()
-        assert tc.LAUNCHES == launches + 1
+        assert LAUNCHES[B2] == launches + 1
         assert torch.equal(p_k, p_p) and torch.equal(t_k, t_p)
         assert float((p_p >= 0).float().mean()) > 0.01
 
@@ -294,11 +297,11 @@ def test_expand_kernel_matches_plain(any_hit, k):
     need_card()
     for leaf, sc, name, rays in sets_for(any_hit, k):
         cmin, cmax = pairs.pairs_args(sc)[:2]
-        launches = pc.EXPAND_LAUNCHES
+        launches = LAUNCHES["expand_kernel"]
         got = pc.expand_cuda(*rays, cmin, cmax, k=k)
         want = pairs.expand_plain(*rays, cmin, cmax, k=k)
         torch.cuda.synchronize()
-        assert pc.EXPAND_LAUNCHES == launches + 1
+        assert LAUNCHES["expand_kernel"] == launches + 1
         for a, b in zip(got, want):
             assert torch.equal(a, b), (leaf, name)
         dead = rays[3] <= rays[2]
@@ -335,11 +338,11 @@ def test_pairtest_kernel_matches_plain(any_hit, k):
     need_card()
     for leaf, sc, name, rays in sets_for(any_hit, k):
         args = pair_inputs(sc, rays, k, seed=14)
-        launches = pc.PAIRTEST_LAUNCHES
+        launches = LAUNCHES["pairtest_kernel"]
         t_k, p_k = pc.pairtest_cuda(*args, leaf=leaf)
         t_p, p_p = pairs.pairtest_plain(*args, leaf=leaf)
         torch.cuda.synchronize()
-        assert pc.PAIRTEST_LAUNCHES == launches + 1
+        assert LAUNCHES["pairtest_kernel"] == launches + 1
         assert torch.equal(p_k, p_p), (leaf, name)
         assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
         improved = int((t_p < args[3]).sum())
@@ -385,14 +388,13 @@ def test_pairs_render_goes_through_pair_kernels(monkeypatch):
                        rr_start=3)
     img_d, _ = render_pt(sc, cfg)
     monkeypatch.setenv("TPUTRACER_PAIRS", "1")
-    before = (pc.EXPAND_LAUNCHES, pc.PAIRTEST_LAUNCHES, tc.LAUNCHES,
-              ic.LAUNCHES)
+    route = ("expand_kernel", "pairtest_kernel", B2, B1)
+    before = [LAUNCHES[k] for k in route]
     img_p, _ = render_pt(sc, cfg)
     torch.cuda.synchronize()
     n = 2 * cfg.max_bounces + 1
-    assert (pc.EXPAND_LAUNCHES, pc.PAIRTEST_LAUNCHES, tc.LAUNCHES,
-            ic.LAUNCHES) == (before[0] + n, before[1] + n, before[2] + n,
-                             before[3])
+    assert [LAUNCHES[k] for k in route] == [before[0] + n, before[1] + n,
+                                            before[2] + n, before[3]]
     img_p, img_d = img_p.cpu().numpy(), img_d.cpu().numpy()
     rel = np.abs(img_p - img_d) / (1.0 + np.abs(img_d))
     assert float(rel.mean()) < 5e-4 and float((rel > 5e-3).mean()) < 0.01
@@ -435,7 +437,7 @@ def test_cuda_bdpt_goes_through_kernel():
     sc = cornell_box("caustic", device="cuda")
     cfg = BdptConfig(width=64, height=64, spp=4, max_bounces=4,
                      chunk_size=1 << 13)
-    launches, walks = ic.LAUNCHES, tc.LAUNCHES
+    launches, walks = LAUNCHES[B1], LAUNCHES[B2]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")   # nothing may wait on the card
     try:
@@ -443,7 +445,7 @@ def test_cuda_bdpt_goes_through_kernel():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert ic.LAUNCHES == launches + 2 * 25 and tc.LAUNCHES == walks
+    assert LAUNCHES[B1] == launches + 2 * 25 and LAUNCHES[B2] == walks
     L_p, sp_p, st_p = bdpt_through(sc, cfg, intersect_plain, occluded_plain)
     assert torch.equal(L_k, L_p)
     torch.testing.assert_close(sp_k, sp_p, rtol=1e-5, atol=1e-7)
@@ -459,10 +461,10 @@ def test_cuda_mesh_bdpt_goes_through_traversal_kernel():
     need_card()
     sc = mesh_scene(subdiv=4, device="cuda")
     cfg = BdptConfig(width=32, height=32, spp=4, max_bounces=4)
-    launches, fused = tc.LAUNCHES, ic.LAUNCHES
+    launches, fused = LAUNCHES[B2], LAUNCHES[B1]
     L_k, sp_k, _ = bdpt_through(sc, cfg)
     torch.cuda.synchronize()
-    assert tc.LAUNCHES == launches + 25 and ic.LAUNCHES == fused
+    assert LAUNCHES[B2] == launches + 25 and LAUNCHES[B1] == fused
     L_p, sp_p, _ = bdpt_through(sc, cfg, intersect_clustered,
                                 occluded_clustered)
     assert torch.equal(L_k, L_p)
@@ -533,11 +535,11 @@ def test_cuda_grad_render_launches(remat):
 
     need_card()
     sc, cfg, target, start = fit_problem()
-    launches, walks = ic.LAUNCHES, tc.LAUNCHES
+    launches, walks = LAUNCHES[B1], LAUNCHES[B2]
     loss, grads = grad_render(sc, start, target, cfg, remat=remat)
     torch.cuda.synchronize()
-    assert ic.LAUNCHES - launches == (14 if remat else 7)
-    assert tc.LAUNCHES == walks
+    assert LAUNCHES[B1] - launches == (14 if remat else 7)
+    assert LAUNCHES[B2] == walks
     assert loss.is_cuda and all(g.is_cuda for g in grads.values())
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
 
@@ -1009,11 +1011,11 @@ def test_uniform3_kernel_matches_plain(n):
     need_card()
     uid = sampler_uids(n, seed=n)
     for salt, seed in SAMPLER_DRAWS:
-        launches = rng.LAUNCHES
+        launches = LAUNCHES["uniform3_kernel"]
         got = rng.uniform3_cuda(uid, salt, seed)
         want = rng.uniform3_plain(uid, salt, seed)
         torch.cuda.synchronize()
-        assert rng.LAUNCHES == launches + 1
+        assert LAUNCHES["uniform3_kernel"] == launches + 1
         for g, w in zip(got, want):
             assert g.dtype == torch.float32 and g.shape == (n,)
             assert g.is_contiguous()
@@ -1056,9 +1058,9 @@ def test_uniform3_routes_cuda_uids_to_the_kernel():
     need_card()
     trace.reset()
     uid = sampler_uids(4_099, seed=5)
-    launches = rng.LAUNCHES
+    launches = LAUNCHES["uniform3_kernel"]
     got = rng.uniform3(uid, 17, 2**31 + 1)
-    assert rng.LAUNCHES == launches + 1
+    assert LAUNCHES["uniform3_kernel"] == launches + 1
     (rec,) = trace.records("rng.uniform3")
     assert rec.counts == {"kernel": 1}
     for g, w in zip(got, rng.uniform3_plain(uid, 17, 2**31 + 1)):
@@ -1067,7 +1069,7 @@ def test_uniform3_routes_cuda_uids_to_the_kernel():
                 uid.cpu()):
         with pytest.raises(ValueError, match="uniform3_cuda"):
             rng.uniform3_cuda(bad, 0, 0)
-    assert rng.LAUNCHES == launches + 1
+    assert LAUNCHES["uniform3_kernel"] == launches + 1
 
 
 # config 1 and config 3 (BASELINE configs[0], [2]) and their draws a
@@ -1102,10 +1104,10 @@ def test_graph_renders_through_the_sampler_kernel_match_torch_sampler(
         graphs.clear()
         outs, launches = [], []
         for _ in range(3):   # eager, the capture, a replay
-            before = rng.LAUNCHES
+            before = LAUNCHES["uniform3_kernel"]
             outs.append(render(sc, cfg))
             torch.cuda.synchronize()
-            launches.append(rng.LAUNCHES - before)
+            launches.append(LAUNCHES["uniform3_kernel"] - before)
         nodes = graphs.graphs()[0].census["uniform3_kernel"]
         graphs.clear()
         return outs, launches, nodes
@@ -1152,7 +1154,7 @@ def test_connect_kernels_match_plain(case):
     """The connection kernels (csrc/connect.cu) give
     connection_radiance_plain's radiance and shadow-ray count bit for bit,
     in two launches; nothing in the kernels' route waits on the card."""
-    from tputracer_torch.integrators import bdpt, bdpt_cuda
+    from tputracer_torch.integrators import bdpt
 
     need_card()
     name, lanes, bounces, power = case
@@ -1162,7 +1164,7 @@ def test_connect_kernels_match_plain(case):
     got, want = {}, {}
     with torch.no_grad():
         assert bdpt.connect_on_card(sc, ys, zs)
-        launches, walks = bdpt_cuda.LAUNCHES, tc.LAUNCHES
+        launches, walks = connect_launches(), LAUNCHES[B2]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1171,9 +1173,9 @@ def test_connect_kernels_match_plain(case):
             torch.cuda.set_sync_debug_mode(0)
         L_p = bdpt.connection_radiance_plain(sc, cfg, ys, zs, stats_acc=want)
     torch.cuda.synchronize()
-    assert bdpt_cuda.LAUNCHES == launches + 2
+    assert connect_launches() == launches + 2
     n_s = (bounces + 1) * bounces // 2
-    assert tc.LAUNCHES - walks == (2 * n_s if name == "mesh" else 0)
+    assert LAUNCHES[B2] - walks == (2 * n_s if name == "mesh" else 0)
     assert L_k.shape == (lanes, 3) and L_k.is_contiguous()
     assert torch.equal(L_k, L_p)
     assert torch.equal(got["rays_shadow"], want["rays_shadow"])
@@ -1190,7 +1192,7 @@ def test_connect_kernels_refuse_what_they_do_not_take():
     need_card()
     cfg = BdptConfig(width=64, height=64, spp=1, max_bounces=3)
     sc, ys, zs = connect_vertices("caustic", 4096, cfg)
-    launches = bdpt_cuda.LAUNCHES
+    launches = connect_launches()
     strided = torch.empty((4096, 6), device="cuda")[:, :3]
     for side, field, bad in ((zs, "p", strided),
                              (ys, "beta", ys[1]["beta"].double()),
@@ -1207,7 +1209,7 @@ def test_connect_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="occlusion result 0"):
         bdpt_cuda.connection_radiance_cuda(
             sc, cfg, ys, zs, occl=lambda s, o, d, tmax: (tmax > 0).float())
-    assert bdpt_cuda.LAUNCHES == launches + 1   # the last call's first kernel
+    assert connect_launches() == launches + 1   # the last call's first kernel
 
 
 @pytest.mark.cuda
@@ -1219,7 +1221,7 @@ def test_graph_bdpt_connect_kernels_match_eager_plain(monkeypatch):
     of the eager render with the connections on the torch route; each
     chunk's bdpt.connect span counts kernel 1, and 0 on that route."""
     from tputracer_torch import graphs, trace
-    from tputracer_torch.integrators import bdpt, bdpt_cuda
+    from tputracer_torch.integrators import bdpt
 
     need_card()
     graphs.clear()
@@ -1229,11 +1231,11 @@ def test_graph_bdpt_connect_kernels_match_eager_plain(monkeypatch):
     chunks = cfg.width * cfg.height * cfg.spp // cfg.chunk_size
     for _ in range(3):
         trace.reset()
-        before = bdpt_cuda.LAUNCHES
+        before = connect_launches()
         L_g, _, st_g = graphs.call("bdpt_rows",
                                    lambda s: bdpt_through(s, cfg), sc, cfg)
         torch.cuda.synchronize()
-        assert bdpt_cuda.LAUNCHES - before == 2 * chunks
+        assert connect_launches() - before == 2 * chunks
     g = graphs.graphs()[0]
     assert g.census["connect_prepare_kernel"] == chunks
     assert g.census["connect_finish_kernel"] == chunks
@@ -1241,9 +1243,9 @@ def test_graph_bdpt_connect_kernels_match_eager_plain(monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(bdpt, "connection_radiance", bdpt.connection_radiance_plain)
         trace.reset()
-        before = bdpt_cuda.LAUNCHES
+        before = connect_launches()
         L_e, _, st_e = bdpt_through(sc, cfg)
-        assert bdpt_cuda.LAUNCHES == before
+        assert connect_launches() == before
     assert torch.equal(L_g, L_e)
     assert all(torch.equal(st_g[k], st_e[k]) for k in st_e)
     graphs.clear()
@@ -1277,11 +1279,11 @@ def test_bdpt_gradient_takes_the_torch_route(monkeypatch):
         raise AssertionError("the kernels' route under a gradient")
 
     trace.reset()
-    launches = bdpt_cuda.LAUNCHES
+    launches = connect_launches()
     with monkeypatch.context() as m:
         m.setattr(bdpt_cuda, "connection_radiance_cuda", refuse)
         loss, g = grads()
-    assert bdpt_cuda.LAUNCHES == launches
+    assert connect_launches() == launches
     assert [r.counts["kernel"] for r in trace.records("bdpt.connect")] == [0]
     with monkeypatch.context() as m:
         m.setattr(bdpt, "connection_radiance", bdpt.connection_radiance_plain)

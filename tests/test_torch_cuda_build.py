@@ -1,9 +1,13 @@
 """tputracer_torch.cuda_build on the CPU, with a fake compiler in nvcc's
 place: builders that start together compile a library once, to a
 temporary name renamed into place, and all load that one file; each load
-is a ``build.<source>`` span that says whether nvcc ran.
+is a ``build.<source>`` span that says whether nvcc ran; a declared
+library's launch counts its kernels when its entry returns no error, and
+raises with the library's error string, counting nothing, when it does.
 """
 
+import collections
+import contextlib
 import ctypes
 import os
 import stat
@@ -23,7 +27,12 @@ while [ $# -gt 0 ]; do
 done
 echo run >> "{count}"
 sleep 0.3
-printf 'int tpt_fake(void) {{ return 7; }}\\n' > "$out.c"
+cat > "$out.c" <<'SRC'
+int tpt_fake(void) {{ return 7; }}
+int tpt_fake_ok(int n, void* stream) {{ return 0; }}
+int tpt_fake_fail(int n, void* stream) {{ return 3; }}
+const char* tpt_fake_error_string(int err) {{ return "fake failure"; }}
+SRC
 cc -shared -fPIC -x c -o "$out" "$out.c" && rm -f "$out.c"
 """
 
@@ -104,3 +113,38 @@ def test_each_load_is_a_build_span_that_counts_a_compile(fake_build):
     assert first.ms >= 300      # the fake compiler sleeps 0.3 s
     assert not hasattr(cuda_build, "BUILD_SECONDS")
     trace.reset()
+
+
+@pytest.fixture
+def fake_library(fake_build, monkeypatch):
+    """The fake library declared as a Library (in a registry and launch
+    counts of the test's own), its stream lookup stubbed."""
+    @contextlib.contextmanager
+    def no_stream(device):
+        yield None
+
+    monkeypatch.setattr(cuda_build, "LIBRARIES", {})
+    monkeypatch.setattr(cuda_build, "LAUNCHES", collections.Counter())
+    monkeypatch.setattr(cuda_build, "_on_stream", no_stream)
+    return cuda_build.Library("fake.cu", "tpt_fake_error_string", {
+        "tpt_fake_ok": ([ctypes.c_int], ["fake_a_kernel", "fake_b_kernel"]),
+        "tpt_fake_fail": ([ctypes.c_int], ["fake_c_kernel"])})
+
+
+def test_a_launch_counts_each_declared_kernel(fake_library):
+    """A call whose entry returns 0 adds each kernel it declares once."""
+    fake_library.launch("tpt_fake_ok", "cpu", 5)
+    assert cuda_build.LAUNCHES == {"fake_a_kernel": 1, "fake_b_kernel": 1}
+    fake_library.launch("tpt_fake_ok", "cpu", 5)
+    assert cuda_build.LAUNCHES == {"fake_a_kernel": 2, "fake_b_kernel": 2}
+    assert cuda_build.LIBRARIES == {"fake.cu": fake_library}
+
+
+def test_a_failed_launch_raises_and_counts_nothing(fake_library):
+    """A call whose entry returns an error raises RuntimeError with the
+    library's error string, the code and the entry's name, and adds no
+    launch."""
+    with pytest.raises(RuntimeError, match=r"tpt_fake_fail launch failed: "
+                                           r"fake failure \(3\)"):
+        fake_library.launch("tpt_fake_fail", "cpu", 5)
+    assert cuda_build.LAUNCHES == {}

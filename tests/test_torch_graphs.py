@@ -255,27 +255,23 @@ def test_kernel_of_names_the_wrappers_kernels(symbol, kernel):
 
 
 def test_kernels_map_to_the_wrappers_launch_counters():
-    """Every launch counter of the kernels' wrappers is fed by one kernel
-    of graphs.KERNELS, but bdpt_cuda's by both connection kernels; only
-    the fold kernel (launched behind each pair test) and the connection
-    table's fill feed none."""
-    from tputracer_torch import rng
-    from tputracer_torch.accel import intersect_cuda, pairs_cuda, \
-        traverse_cuda
-    from tputracer_torch.integrators import bdpt_cuda
+    """Every kernel a library of cuda_build declares, mangled or
+    demangled, is one graphs.kernel_of names, and no two libraries
+    declare the same kernel: the five libraries' nine kernels, all but
+    the connection table's fill counted in cuda_build.LAUNCHES."""
+    from tputracer_torch import cuda_build, rng  # noqa: F401
+    from tputracer_torch.accel import (intersect_cuda, pairs_cuda,  # noqa
+                                       traverse_cuda)
+    from tputracer_torch.integrators import bdpt_cuda  # noqa: F401
 
-    fed = [(m.__name__, a) for m, a in
-           (c for c in graphs.KERNELS.values() if c is not None)]
-    assert sorted(fed) == sorted([(intersect_cuda.__name__, "LAUNCHES"),
-                                  (traverse_cuda.__name__, "LAUNCHES"),
-                                  (pairs_cuda.__name__, "EXPAND_LAUNCHES"),
-                                  (pairs_cuda.__name__, "PAIRTEST_LAUNCHES"),
-                                  (rng.__name__, "LAUNCHES"),
-                                  (bdpt_cuda.__name__, "LAUNCHES"),
-                                  (bdpt_cuda.__name__, "LAUNCHES")])
-    assert [k for k, c in graphs.KERNELS.items() if c is None] == \
-        ["fold_kernel", "connect_table_kernel"]
-    assert len(graphs._COUNTERS) == 6
-    for m, a in (c for c in graphs.KERNELS.values() if c is not None):
-        assert isinstance(getattr(m, a), int)
-
+    declared = [k for lib in cuda_build.LIBRARIES.values()
+                for k in lib.kernels()]
+    assert len(declared) == len(set(declared)) == 9
+    assert sorted(cuda_build.LIBRARIES) == ["connect.cu", "intersect.cu",
+                                            "pairs.cu", "rng.cu",
+                                            "traverse.cu"]
+    for k in declared:
+        assert graphs.kernel_of(f"_ZN12_GLOBAL__N_1{len(k)}{k}Ev") == k
+        assert graphs.kernel_of(f"(anonymous namespace)::{k}(int)") == k
+    assert [k for k, c in cuda_build.kernels().items() if not c] == \
+        ["connect_table_kernel"]

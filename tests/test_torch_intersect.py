@@ -39,6 +39,7 @@ from tputracer.accel.intersect_tpu import intersect_fused as jax_intersect_fused
 from tputracer.accel.intersect_tpu import occluded_fused as jax_occluded_fused
 from tputracer.scene import cornell_box as jax_cornell_box
 from tputracer.scene.types import make_scene as jax_make_scene
+from tputracer_torch import cuda_build
 from tputracer_torch import geometry as g
 from tputracer_torch.accel import (intersect, intersect_brute,
                                    intersect_fused, occluded, occluded_brute,
@@ -361,7 +362,7 @@ def test_dispatch_on_cpu_takes_brute_force():
 def test_cuda_wrapper_refuses_cpu_tensors():
     ts = cornell_box("boxes", device="cpu")
     o, d, tmin, tmax, _ = torch_args(*random_rays(8, seed=1))
-    launches = ic.LAUNCHES
+    launches = cuda_build.LAUNCHES["fused_intersect_kernel"]
     with pytest.raises(ValueError):
         ic.fused_intersect_cuda(o, d, tmin, tmax, *ic.scene_args(ts))
-    assert ic.LAUNCHES == launches
+    assert cuda_build.LAUNCHES["fused_intersect_kernel"] == launches

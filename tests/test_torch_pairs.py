@@ -35,7 +35,7 @@ from tputracer.accel.clustered import _sphere_best as jax_sphere_best
 from tputracer.api import render as jax_render
 from tputracer.config import RenderConfig as JaxRenderConfig
 from tputracer.scene.mesh import mesh_scene as jax_mesh_scene
-from tputracer_torch import accel, cli
+from tputracer_torch import accel, cli, cuda_build
 from tputracer_torch.accel import clustered as cl
 from tputracer_torch.accel import intersect_brute, occluded_brute
 from tputracer_torch.accel import pairs as tp
@@ -321,7 +321,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     o, d = t_args(*random_rays(8, seed=72))
     tmin, tmax = torch.zeros(8), torch.full((8,), BIG)
     cmin, cmax, v0, e1, e2, mask = tp.pairs_args(ts)
-    launches = (pc.EXPAND_LAUNCHES, pc.PAIRTEST_LAUNCHES)
+    launches = cuda_build.LAUNCHES.copy()
     with pytest.raises(ValueError):
         pc.expand_cuda(o, d, tmin, tmax, cmin, cmax, k=tp.K)
     cid = torch.zeros((8, tp.K), dtype=torch.int32)
@@ -331,7 +331,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         pc.pairtest_cuda(o, d, tmin, tmax, bp0, sidx, cid, tmax[:, None]
                          .expand(8, tp.K).contiguous(), v0, e1, e2, mask,
                          leaf=ts.leaf_size)
-    assert (pc.EXPAND_LAUNCHES, pc.PAIRTEST_LAUNCHES) == launches
+    assert cuda_build.LAUNCHES == launches
     # the dispatchers run the plain versions on CPU tensors
     got = tp.expand(o, d, tmin, tmax, cmin, cmax)
     want = tp.expand_plain(o, d, tmin, tmax, cmin, cmax)

@@ -13,7 +13,7 @@ import torch
 
 from tputracer import rng as jrng
 from tputracer_torch import rng as trng
-from tputracer_torch import trace
+from tputracer_torch import cuda_build, trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,14 +72,14 @@ def test_cpu_uids_take_the_torch_route(monkeypatch):
     monkeypatch.setattr(trng, "uniform3_cuda", no_kernel)
     trace.reset()
     uid = torch.arange(-500, 500, dtype=torch.int64) * 8_589_935
-    launches = trng.LAUNCHES
+    launches = cuda_build.LAUNCHES["uniform3_kernel"]
     got = trng.uniform3(uid, 2**31 + 3, 2**32 - 7)
     want = trng.uniform3_plain(uid, 2**31 + 3, 2**32 - 7)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     (rec,) = trace.records("rng.uniform3")
     assert rec.counts == {"kernel": 0}
-    assert trng.LAUNCHES == launches
+    assert cuda_build.LAUNCHES["uniform3_kernel"] == launches
 
 
 def test_uniform3_refuses_a_device_without_a_route():

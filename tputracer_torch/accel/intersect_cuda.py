@@ -28,17 +28,30 @@ import ctypes
 
 import torch
 
+from tputracer_torch import cuda_build
 from tputracer_torch import geometry as g
 from tputracer_torch.accel.bruteforce import (edge_volume, finalize_hit,
                                               ray_features)
+from tputracer_torch.cuda_build import Library, check
 
 _BLK = 128      # triangles per block of the plain version
 _BIG = 3.0e38
 
-# kernel launches made by this module's wrapper since the last reset
-LAUNCHES = 0
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIB = Library("intersect.cu", "tpt_error_string", {
+    "tpt_fused_intersect": ([_p, _p, _p, _p,       # o, d, tmin, tmax
+                             _p, _p, _i,           # sph_c, sph_r, n_sph
+                             _p, _p, _p, _p, _i,   # plu, trin, tri_v0, mask,
+                                                   # n_tri
+                             _i, _i,               # n_rays, any_hit
+                             _p, _p],              # t_out, prim_out
+                            ["fused_intersect_kernel"])})
 
-_FN = None
+
+def __getattr__(name):
+    if name == "LAUNCHES":   # read by the benchmark (perfbench/program.py)
+        return cuda_build.LAUNCHES["fused_intersect_kernel"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def scene_args(scene):
@@ -96,73 +109,33 @@ def fused_intersect_plain(o, d, tmin, tmax, sph_c, sph_r, plu, trin, tri_v0,
     return bt, bp
 
 
-def load_kernel():
-    """Build (first use) and load the CUDA kernel; returns (fn, errstr)."""
-    global _FN
-    if _FN is None:
-        from tputracer_torch.cuda_build import load_library
-
-        lib = load_library("intersect.cu")
-        fn = lib.tpt_fused_intersect
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p,        # o, d, tmin, tmax
-                       p, p, i,           # sph_c, sph_r, n_sph
-                       p, p, p, p, i,     # plu, trin, tri_v0, mask, n_tri
-                       i, i,              # n_rays, any_hit
-                       p, p, p]           # t_out, prim_out, stream
-        fn.restype = i
-        lib.tpt_error_string.argtypes = [i]
-        lib.tpt_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.tpt_error_string)
-    return _FN
-
-
-def _check(x, name, shape, dtype, device):
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
-            or not x.is_contiguous():
-        raise ValueError(
-            f"{name}: want contiguous {dtype} {shape} on {device}, got "
-            f"{x.dtype} {tuple(x.shape)} on {x.device}"
-            f"{'' if x.is_contiguous() else ' (not contiguous)'}")
-
-
 def fused_intersect_cuda(o, d, tmin, tmax, sph_c, sph_r, plu, trin, tri_v0,
                          mask, any_hit=False):
     """Launch the kernel on CUDA tensors: (t (N,) f32, prim (N,) i32).
 
     With any_hit the kernel stops at a ray's first hit, so t < tmax is
     right and t itself is only some hit, not the closest."""
-    global LAUNCHES
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"fused_intersect_cuda needs CUDA tensors, got {dev}")
     n, S, T = o.shape[0], sph_c.shape[0], plu.shape[2]
     f32 = torch.float32
-    _check(o, "o", (n, 3), f32, dev)
-    _check(d, "d", (n, 3), f32, dev)
-    _check(tmin, "tmin", (n,), f32, dev)
-    _check(tmax, "tmax", (n,), f32, dev)
-    _check(sph_c, "sph_c", (S, 3), f32, dev)
-    _check(sph_r, "sph_r", (S,), f32, dev)
-    _check(plu, "plu", (3, 6, T), f32, dev)
-    _check(trin, "trin", (T, 3), f32, dev)
-    _check(tri_v0, "tri_v0", (T, 3), f32, dev)
-    _check(mask, "mask", (T,), f32, dev)
+    who = "fused_intersect_cuda"
+    check(who, "o", o, f32, (n, 3), dev)
+    check(who, "d", d, f32, (n, 3), dev)
+    check(who, "tmin", tmin, f32, (n,), dev)
+    check(who, "tmax", tmax, f32, (n,), dev)
+    check(who, "sph_c", sph_c, f32, (S, 3), dev)
+    check(who, "sph_r", sph_r, f32, (S,), dev)
+    check(who, "plu", plu, f32, (3, 6, T), dev)
+    check(who, "trin", trin, f32, (T, 3), dev)
+    check(who, "tri_v0", tri_v0, f32, (T, 3), dev)
+    check(who, "mask", mask, f32, (T,), dev)
     t = torch.empty((n,), dtype=f32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
-    if n == 0:
-        return t, prim
-    fn, errstr = load_kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                 sph_c.data_ptr(), sph_r.data_ptr(), S, plu.data_ptr(),
-                 trin.data_ptr(), tri_v0.data_ptr(), mask.data_ptr(), T, n,
-                 int(any_hit), t.data_ptr(), prim.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"tpt_fused_intersect launch failed: "
-                           f"{errstr(err).decode()} ({err})")
-    LAUNCHES += 1
+    if n:
+        LIB.launch("tpt_fused_intersect", dev, o, d, tmin, tmax, sph_c, sph_r,
+                   S, plu, trin, tri_v0, mask, T, n, int(any_hit), t, prim)
     return t, prim
 
 

@@ -15,114 +15,63 @@ import ctypes
 
 import torch
 
-from tputracer_torch.accel.intersect_cuda import _check
+from tputracer_torch import cuda_build
+from tputracer_torch.cuda_build import Library, check, drop_scratch, scratch
 
-# kernel launches made by this module's wrappers since the last reset
-EXPAND_LAUNCHES = 0
-PAIRTEST_LAUNCHES = 0
-
-_LIB = None
-# the pair test's fold keys (all ones), per (device, stream): its fold
-# kernel leaves them so, and a call launches no memset (a CUDA graph's
-# replay relies on it; the graphs that captured a key tensor keep it,
-# graphs.Graph.scratch)
-_KEYS: dict = {}
-
-
-def load_kernel():
-    """Build (first use) and load the library; returns (expand_fn,
-    pairtest_fn, errstr, limits), limits a dict of max_clusters,
-    max_leaf, max_slots and prim_bits."""
-    global _LIB
-    if _LIB is None:
-        from tputracer_torch.cuda_build import load_library
-
-        lib = load_library("pairs.cu")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        expand = lib.tpt_pair_expand
-        expand.argtypes = [p, p, p, p,      # o, d, tmin, tmax
-                           p, p, i,         # cmin, cmax, n_clusters
-                           i, i,            # n_rays, k_slots
-                           p, p, p, p]      # cid, te, bound, stream
-        expand.restype = i
-        test = lib.tpt_pair_test
-        test.argtypes = [p, p, p, p, p,     # o, d, tmin, bt0, bp0
-                         p, p, p,           # sidx, cid, te
-                         p, p, p, p,        # v0, e1, e2, mask
-                         i, i, i,           # leaf, k_slots, n_rays
-                         p,                 # keys
-                         p, p, p]           # t_out, p_out, stream
-        test.restype = i
-        lib.tpt_pairs_error_string.argtypes = [i]
-        lib.tpt_pairs_error_string.restype = ctypes.c_char_p
-        limits = {}
-        for name in ("max_clusters", "max_leaf", "max_slots", "prim_bits"):
-            fn = getattr(lib, f"tpt_pairs_{name}")
-            fn.restype = i
-            limits[name] = fn()
-        _LIB = (expand, test, lib.tpt_pairs_error_string, limits)
-    return _LIB
+_p, _i = ctypes.c_void_p, ctypes.c_int
+LIB = Library("pairs.cu", "tpt_pairs_error_string", {
+    "tpt_pair_expand": ([_p, _p, _p, _p,       # o, d, tmin, tmax
+                         _p, _p, _i,           # cmin, cmax, n_clusters
+                         _i, _i,               # n_rays, k_slots
+                         _p, _p, _p],          # cid, te, bound
+                        ["expand_kernel"]),
+    "tpt_pair_test": ([_p, _p, _p, _p, _p,     # o, d, tmin, bt0, bp0
+                       _p, _p, _p,             # sidx, cid, te
+                       _p, _p, _p, _p,         # v0, e1, e2, mask
+                       _i, _i, _i,             # leaf, k_slots, n_rays
+                       _p,                     # keys
+                       _p, _p],                # t_out, p_out
+                      ["pairtest_kernel", "fold_kernel"])})
 
 
-def _raise_on(err, name, errstr):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {errstr(err).decode()} "
-                           f"({err})")
+def __getattr__(name):
+    if name == "PAIRTEST_LAUNCHES":   # read by the benchmark (perfbench/)
+        return cuda_build.LAUNCHES["pairtest_kernel"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def expand_cuda(o, d, tmin, tmax, cmin, cmax, k):
     """Launch the expand kernel on CUDA tensors: (cid (N,k) i32,
     te (N,k) f32, bound (N,) f32), as pairs.expand_plain."""
-    global EXPAND_LAUNCHES
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"expand_cuda needs CUDA tensors, got {dev}")
     n, C = o.shape[0], cmin.shape[0]
     f32 = torch.float32
-    _check(o, "o", (n, 3), f32, dev)
-    _check(d, "d", (n, 3), f32, dev)
-    _check(tmin, "tmin", (n,), f32, dev)
-    _check(tmax, "tmax", (n,), f32, dev)
-    _check(cmin, "cmin", (C, 3), f32, dev)
-    _check(cmax, "cmax", (C, 3), f32, dev)
+    who = "expand_cuda"
+    check(who, "o", o, f32, (n, 3), dev)
+    check(who, "d", d, f32, (n, 3), dev)
+    check(who, "tmin", tmin, f32, (n,), dev)
+    check(who, "tmax", tmax, f32, (n,), dev)
+    check(who, "cmin", cmin, f32, (C, 3), dev)
+    check(who, "cmax", cmax, f32, (C, 3), dev)
     cid = torch.empty((n, k), dtype=torch.int32, device=dev)
     te = torch.empty((n, k), dtype=f32, device=dev)
     bound = torch.empty((n,), dtype=f32, device=dev)
     if n == 0:
         return cid, te, bound
-    expand, _, errstr, limits = load_kernel()
-    if not 2 <= k <= limits["max_slots"]:
+    max_slots = LIB.limit("tpt_pairs_max_slots")
+    if not 2 <= k <= max_slots:
         raise ValueError(f"{k} slots: the expand kernel takes 2 to "
-                         f"{limits['max_slots']}")
-    if C > limits["max_clusters"]:
+                         f"{max_slots}")
+    max_clusters = LIB.limit("tpt_pairs_max_clusters")
+    if C > max_clusters:
         raise ValueError(
             f"{C} clusters: the expand kernel stages every cluster AABB in "
-            f"one block's shared memory, which holds at most "
-            f"{limits['max_clusters']}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = expand(o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
-                     tmax.data_ptr(), cmin.data_ptr(), cmax.data_ptr(), C, n,
-                     k, cid.data_ptr(), te.data_ptr(), bound.data_ptr(),
-                     stream)
-    _raise_on(err, "tpt_pair_expand", errstr)
-    EXPAND_LAUNCHES += 1
+            f"one block's shared memory, which holds at most {max_clusters}")
+    LIB.launch("tpt_pair_expand", dev, o, d, tmin, tmax, cmin, cmax, C, n, k,
+               cid, te, bound)
     return cid, te, bound
-
-
-def _keys(dev, stream, n):
-    """The fold keys of (device, stream): at least n, all ones."""
-    keys = _KEYS.get((dev.index, stream))
-    if keys is None or keys.shape[0] < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                f"pairtest_cuda: this stream's fold keys must hold {n} "
-                f"before a CUDA graph capture (one call on the capture "
-                f"stream first), or they would live in the graph's pool")
-        cap = max(n, 2 * keys.shape[0] if keys is not None else n)
-        keys = torch.full((cap,), -1, dtype=torch.int64, device=dev)
-        _KEYS[(dev.index, stream)] = keys
-    return keys
 
 
 def pairtest_cuda(o, d, tmin, bt0, bp0, sidx, cid, te, v0, e1, e2, mask,
@@ -130,7 +79,6 @@ def pairtest_cuda(o, d, tmin, bt0, bp0, sidx, cid, te, v0, e1, e2, mask,
     """Launch the pair-test kernel on CUDA tensors: each ray's folded
     (best_t (N,) f32, best_p (N,) i32), as pairs.pairtest_plain.  sidx
     (N*K,) i64 permutes the slots into cluster order; cid, te (N,K)."""
-    global PAIRTEST_LAUNCHES
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"pairtest_cuda needs CUDA tensors, got {dev}")
@@ -138,42 +86,41 @@ def pairtest_cuda(o, d, tmin, bt0, bp0, sidx, cid, te, v0, e1, e2, mask,
     if leaf <= 0 or T % leaf:
         raise ValueError(f"{T} triangle slots are not clusters of {leaf}")
     f32 = torch.float32
-    _check(o, "o", (n, 3), f32, dev)
-    _check(d, "d", (n, 3), f32, dev)
-    _check(tmin, "tmin", (n,), f32, dev)
-    _check(bt0, "bt0", (n,), f32, dev)
-    _check(bp0, "bp0", (n,), torch.int32, dev)
-    _check(sidx, "sidx", (n * k,), torch.int64, dev)
-    _check(cid, "cid", (n, k), torch.int32, dev)
-    _check(te, "te", (n, k), f32, dev)
-    _check(v0, "v0", (T, 3), f32, dev)
-    _check(e1, "e1", (T, 3), f32, dev)
-    _check(e2, "e2", (T, 3), f32, dev)
-    _check(mask, "mask", (T,), f32, dev)
+    who = "pairtest_cuda"
+    check(who, "o", o, f32, (n, 3), dev)
+    check(who, "d", d, f32, (n, 3), dev)
+    check(who, "tmin", tmin, f32, (n,), dev)
+    check(who, "bt0", bt0, f32, (n,), dev)
+    check(who, "bp0", bp0, torch.int32, (n,), dev)
+    check(who, "sidx", sidx, torch.int64, (n * k,), dev)
+    check(who, "cid", cid, torch.int32, (n, k), dev)
+    check(who, "te", te, f32, (n, k), dev)
+    check(who, "v0", v0, f32, (T, 3), dev)
+    check(who, "e1", e1, f32, (T, 3), dev)
+    check(who, "e2", e2, f32, (T, 3), dev)
+    check(who, "mask", mask, f32, (T,), dev)
     t = torch.empty((n,), dtype=f32, device=dev)
     p = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return t, p
-    _, test, errstr, limits = load_kernel()
-    if not 1 <= k <= limits["max_slots"]:
-        raise ValueError(f"{k} slots: the pair test takes 1 to "
-                         f"{limits['max_slots']}")
-    if T > 1 << limits["prim_bits"]:
+    max_slots = LIB.limit("tpt_pairs_max_slots")
+    if not 1 <= k <= max_slots:
+        raise ValueError(f"{k} slots: the pair test takes 1 to {max_slots}")
+    prim_bits = LIB.limit("tpt_pairs_prim_bits")
+    if T > 1 << prim_bits:
         raise ValueError(f"{T} triangle slots: the fold key holds prims "
-                         f"below 2^{limits['prim_bits']}")
-    if leaf > limits["max_leaf"]:
+                         f"below 2^{prim_bits}")
+    max_leaf = LIB.limit("tpt_pairs_max_leaf")
+    if leaf > max_leaf:
         raise ValueError(f"leaf {leaf}: the pair test stages at most "
-                         f"{limits['max_leaf']} slots a cluster")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        keys = _keys(dev, stream, n)
-        err = test(o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
-                   bt0.data_ptr(), bp0.data_ptr(), sidx.data_ptr(),
-                   cid.data_ptr(), te.data_ptr(), v0.data_ptr(),
-                   e1.data_ptr(), e2.data_ptr(), mask.data_ptr(), leaf, k, n,
-                   keys.data_ptr(), t.data_ptr(), p.data_ptr(), stream)
-    if err != 0:   # the fold may not have run: its keys are not all ones
-        _KEYS.pop((dev.index, stream), None)
-    _raise_on(err, "tpt_pair_test", errstr)
-    PAIRTEST_LAUNCHES += 1
+                         f"{max_leaf} slots a cluster")
+    # all ones; the fold kernel leaves them so, and a call launches no
+    # memset (a CUDA graph's replay relies on it)
+    keys = scratch(who, "fold keys", dev, n, torch.int64, fill=-1)
+    try:
+        LIB.launch("tpt_pair_test", dev, o, d, tmin, bt0, bp0, sidx, cid, te,
+                   v0, e1, e2, mask, leaf, k, n, keys, t, p)
+    except RuntimeError:   # the fold may not have run: not all ones
+        drop_scratch("fold keys", dev)
+        raise
     return t, p

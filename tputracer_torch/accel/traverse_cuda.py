@@ -24,42 +24,27 @@ import ctypes
 
 import torch
 
+from tputracer_torch import cuda_build
 from tputracer_torch.accel.clustered import (_traverse, intersect_clustered,
                                              occluded_clustered)
-from tputracer_torch.accel.intersect_cuda import _check
+from tputracer_torch.cuda_build import Library, check, scratch
 
-# kernel launches made by this module's wrapper since the last reset
-LAUNCHES = 0
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# its memset of the ray counter is not a kernel node
+LIB = Library("traverse.cu", "tpt_traverse_error_string", {
+    "tpt_traverse": ([_p, _p, _p, _p,          # o, d, tmin, tmax
+                      _p, _p,                  # bt0, bp0
+                      _p, _p, _i,              # cmin, cmax, n_clusters
+                      _p, _p, _p, _p,          # plu, trin, v0n, mask
+                      _i, _i, _i, _i,          # leaf, n_tri, n_rays, any_hit
+                      _p, _p, _p],             # t_out, prim_out, next_ray
+                     ["traverse_kernel"])})
 
-_FN = None
-# the kernel's ray counter, one int per (device, stream), kept between calls
-# (and by the CUDA graphs that captured it, graphs.Graph.scratch)
-_COUNTERS: dict = {}
 
-
-def load_kernel():
-    """Build (first use) and load the CUDA kernel; returns
-    (fn, errstr, max_clusters)."""
-    global _FN
-    if _FN is None:
-        from tputracer_torch.cuda_build import load_library
-
-        lib = load_library("traverse.cu")
-        fn = lib.tpt_traverse
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p,          # o, d, tmin, tmax
-                       p, p,                # bt0, bp0
-                       p, p, i,             # cmin, cmax, n_clusters
-                       p, p, p, p,          # plu, trin, v0n, mask
-                       i, i, i, i,          # leaf, n_tri, n_rays, any_hit
-                       p, p, p, p]          # t_out, prim_out, next_ray, stream
-        fn.restype = i
-        lib.tpt_traverse_error_string.argtypes = [i]
-        lib.tpt_traverse_error_string.restype = ctypes.c_char_p
-        lib.tpt_traverse_max_clusters.restype = i
-        _FN = (fn, lib.tpt_traverse_error_string,
-               lib.tpt_traverse_max_clusters())
-    return _FN
+def __getattr__(name):
+    if name == "LAUNCHES":   # read by the benchmark (perfbench/program.py)
+        return cuda_build.LAUNCHES["traverse_kernel"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def traverse_cuda(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n,
@@ -68,7 +53,6 @@ def traverse_cuda(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n,
 
     Same contract as accel.clustered._traverse; with any_hit, t < tmax is
     the occlusion verdict and t is the first hit found."""
-    global LAUNCHES
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"traverse_cuda needs CUDA tensors, got {dev}")
@@ -76,48 +60,33 @@ def traverse_cuda(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n,
     if leaf <= 0 or T != C * leaf:
         raise ValueError(f"{T} triangle slots are not {C} clusters of {leaf}")
     f32, i32 = torch.float32, torch.int32
-    _check(o, "o", (n, 3), f32, dev)
-    _check(d, "d", (n, 3), f32, dev)
-    _check(tmin, "tmin", (n,), f32, dev)
-    _check(tmax, "tmax", (n,), f32, dev)
-    _check(bt0, "bt0", (n,), f32, dev)
-    _check(bp0, "bp0", (n,), i32, dev)
-    _check(cmin, "cmin", (C, 3), f32, dev)
-    _check(cmax, "cmax", (C, 3), f32, dev)
-    _check(plu, "plu", (3, 6, T), f32, dev)
-    _check(trin, "trin", (T, 3), f32, dev)
-    _check(v0n, "v0n", (T,), f32, dev)
-    _check(mask, "mask", (T,), f32, dev)
+    who = "traverse_cuda"
+    check(who, "o", o, f32, (n, 3), dev)
+    check(who, "d", d, f32, (n, 3), dev)
+    check(who, "tmin", tmin, f32, (n,), dev)
+    check(who, "tmax", tmax, f32, (n,), dev)
+    check(who, "bt0", bt0, f32, (n,), dev)
+    check(who, "bp0", bp0, i32, (n,), dev)
+    check(who, "cmin", cmin, f32, (C, 3), dev)
+    check(who, "cmax", cmax, f32, (C, 3), dev)
+    check(who, "plu", plu, f32, (3, 6, T), dev)
+    check(who, "trin", trin, f32, (T, 3), dev)
+    check(who, "v0n", v0n, f32, (T,), dev)
+    check(who, "mask", mask, f32, (T,), dev)
     t = torch.empty((n,), dtype=f32, device=dev)
     prim = torch.empty((n,), dtype=i32, device=dev)
     if n == 0:
         return t, prim
-    fn, errstr, max_clusters = load_kernel()
+    max_clusters = LIB.limit("tpt_traverse_max_clusters")
     if C > max_clusters:
         raise ValueError(
             f"{C} clusters: the kernel stages every cluster AABB in one "
             f"block's shared memory, which holds at most {max_clusters}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        key = (dev.index, stream)
-        next_ray = _COUNTERS.get(key)
-        if next_ray is None:   # zeroed by tpt_traverse on this stream
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
-                    "traverse_cuda: this stream's ray counter must exist "
-                    "before a CUDA graph capture (one call on the capture "
-                    "stream first), or it would live in the graph's pool")
-            next_ray = _COUNTERS[key] = torch.empty((1,), dtype=i32,
-                                                    device=dev)
-        err = fn(o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                 bt0.data_ptr(), bp0.data_ptr(), cmin.data_ptr(),
-                 cmax.data_ptr(), C, plu.data_ptr(), trin.data_ptr(),
-                 v0n.data_ptr(), mask.data_ptr(), leaf, T, n, int(any_hit),
-                 t.data_ptr(), prim.data_ptr(), next_ray.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"tpt_traverse launch failed: "
-                           f"{errstr(err).decode()} ({err})")
-    LAUNCHES += 1
+    # zeroed by tpt_traverse on its stream
+    next_ray = scratch(who, "ray counter", dev, 1, i32)
+    LIB.launch("tpt_traverse", dev, o, d, tmin, tmax, bt0, bp0, cmin, cmax,
+               C, plu, trin, v0n, mask, leaf, T, n, int(any_hit), t, prim,
+               next_ray)
     return t, prim
 
 

@@ -1,4 +1,13 @@
-"""Build a CUDA source of ``tputracer_torch/csrc`` into a shared library.
+"""The hand-written kernels' one home: build, bind, launch and count.
+
+Each library of ``tputracer_torch/csrc`` is declared once, as a
+:class:`Library`, by the module that launches its kernels: its entry
+points, their argtypes, the kernels each call launches and its
+error-string function.  :meth:`Library.launch` is the only launch: it
+passes the device's current stream, raises on an error and counts each
+kernel launched in :data:`LAUNCHES`, the counts ``graphs`` checks a
+captured graph against.  :func:`check` is the wrappers' argument check,
+and :func:`scratch` keeps the kernels' per-stream scratch.
 
 Kernels are compiled with ``nvcc`` at first use, never at import, into
 ``tputracer_torch/csrc/build/`` (listed in ``.gitignore``).  The library
@@ -16,6 +25,8 @@ never blocks a later build.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -23,6 +34,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 from tputracer_torch.trace import span
 
@@ -90,3 +103,141 @@ def _build(source, so):
     finally:
         tmp.unlink(missing_ok=True)
     BUILD_LOG[source] = proc.stderr
+
+
+# kernel launches since the last reset, by kernel name (the names
+# graphs.census reads from a graph's kernel nodes): what each entry point
+# declares it launches, added once a call that returned no error
+LAUNCHES: collections.Counter = collections.Counter()
+
+# the declared libraries, by source; a library is declared when the module
+# that launches its kernels is imported
+LIBRARIES: dict = {}
+
+# the kernels' scratch by (device index, stream, name), kept between calls
+# and by the CUDA graphs that captured it (scratch_of)
+_SCRATCH: dict = {}
+
+
+class Library:
+    """One library of ``csrc/``, declared once by the module that launches
+    its kernels and built at its first launch, never at import.
+
+    ``entries`` maps each entry point to its argtypes (the stream, which
+    every entry takes last, left out) and the kernels one successful call
+    launches, by name; ``errstr`` names the library's error-string
+    function; ``uncounted`` names kernels that a call launches a varying
+    number of times, which graphs.census counts but :data:`LAUNCHES` does
+    not."""
+
+    def __init__(self, source, errstr, entries, uncounted=()):
+        self.source, self.errstr, self.entries = source, errstr, entries
+        self.uncounted = tuple(uncounted)
+        self._lib = None
+        LIBRARIES[source] = self
+
+    def kernels(self):
+        """Each kernel's name, with whether :data:`LAUNCHES` counts it."""
+        counted = dict.fromkeys((k for _, ks in self.entries.values()
+                                 for k in ks), True)
+        return {**counted, **dict.fromkeys(self.uncounted, False)}
+
+    def load(self):
+        """The library, built (first use), loaded and bound."""
+        if self._lib is None:
+            lib = load_library(self.source)
+            for name, (argtypes, _) in self.entries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [*argtypes, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            err = getattr(lib, self.errstr)
+            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def limit(self, name):
+        """What the library's int function ``name`` returns (a capacity
+        of its kernels)."""
+        return getattr(self.load(), name)()
+
+    def launch(self, entry, device, *args):
+        """Call ``entry`` with ``args`` (a tensor passes its data pointer)
+        and the current stream of ``device``.  Raises RuntimeError with
+        the library's error string, counting nothing, if it returns an
+        error; else adds its kernels to :data:`LAUNCHES`."""
+        lib = self.load()
+        args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        with _on_stream(device) as stream:
+            err = getattr(lib, entry)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: "
+                               f"{getattr(lib, self.errstr)(err).decode()} "
+                               f"({err})")
+        LAUNCHES.update(self.entries[entry][1])
+
+
+def kernels():
+    """Every declared library's kernels, with whether :data:`LAUNCHES`
+    counts each."""
+    return {k: c for lib in LIBRARIES.values()
+            for k, c in lib.kernels().items()}
+
+
+@contextlib.contextmanager
+def _on_stream(device):
+    """``device`` made current, giving its current stream's handle."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
+def check(who, name, t, dtype, shape, device):
+    """Raise ValueError unless ``t`` is a contiguous ``dtype`` tensor of
+    ``shape`` on ``device``, as ``who``'s kernels read it; returns its
+    data pointer."""
+    shape = tuple(shape)
+    if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
+            or not t.is_contiguous()):
+        raise ValueError(
+            f"{who}: want {name} a contiguous {dtype} {shape} tensor on "
+            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+    return t.data_ptr()
+
+
+def scratch(who, name, device, n, dtype, fill=None):
+    """The scratch ``name`` of ``device``'s current stream: at least ``n``
+    entries of ``dtype``, made (filled with ``fill``, or left
+    uninitialized) or grown (to twice its size at least) outside a CUDA
+    graph capture only: in one it would live in the graph's pool, so
+    there it raises."""
+    with torch.cuda.device(device):
+        key = (device.index, torch.cuda.current_stream(device).cuda_stream,
+               name)
+        t = _SCRATCH.get(key)
+        if t is None or t.shape[0] < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{who}: this stream's {name} must hold {n} before a "
+                    f"CUDA graph capture (one call on the capture stream "
+                    f"first), or it would live in the graph's pool")
+            size = n if t is None else max(n, 2 * t.shape[0])
+            t = _SCRATCH[key] = (
+                torch.empty(size, dtype=dtype, device=device) if fill is None
+                else torch.full((size,), fill, dtype=dtype, device=device))
+    return t
+
+
+def drop_scratch(name, device):
+    """Forget the scratch ``name`` of ``device``'s current stream."""
+    with torch.cuda.device(device):
+        _SCRATCH.pop((device.index,
+                      torch.cuda.current_stream(device).cuda_stream, name),
+                     None)
+
+
+def scratch_of(device, stream):
+    """All scratch of (``device``, ``stream``), for a graph that captured
+    it to keep alive."""
+    return [t for (d, s, _), t in _SCRATCH.items()
+            if (d, s) == (device.index, stream.cuda_stream)]

@@ -39,14 +39,15 @@ replaying that graph:
     of their calls, whatever stream each caller has current, so the
     scratch they share (B2's ray counter, the pair test's fold keys) is
     never used by two at once;
-  * **launch counters**: the kernels' wrappers count their launches in
-    Python, which a replay does not run.  At the capture the graph's
-    kernel nodes are read back from the driver and counted by kernel
-    (:func:`census`); the capture fails unless those counts are what the
-    wrappers counted while it recorded.  Each replay then adds the
+  * **launch counts**: ``cuda_build`` counts each launch of a
+    hand-written kernel in Python (``cuda_build.LAUNCHES``), which a
+    replay does not run.  At the capture the graph's kernel nodes are
+    read back through libcuda and counted by kernel (:func:`census`); the
+    capture fails unless the counts of the counted kernels are what
+    ``cuda_build`` counted while it recorded.  Each replay then adds the
     graph's own counts, and the capture's recording adds none: after a
-    call the counters read one render's launches, whether it ran
-    eagerly, captured or replayed.
+    call the counts read one render's launches, whether it ran eagerly,
+    captured or replayed.
 
 CPU tensors run ``fn`` eagerly (CPU PyTorch has no graphs), and so does a
 call with gradients enabled on a scene whose tensors require them (the
@@ -71,30 +72,10 @@ import re
 
 import torch
 
-from tputracer_torch import rng as _rng
+from tputracer_torch import cuda_build
 from tputracer_torch.accel import _use_pairs
-from tputracer_torch.accel import intersect_cuda as _ic
-from tputracer_torch.accel import pairs_cuda as _pc
-from tputracer_torch.accel import traverse_cuda as _tc
-from tputracer_torch.integrators import bdpt_cuda as _bc
 from tputracer_torch.scene.types import CAMERA_FIELDS, TENSOR_FIELDS, Camera
 from tputracer_torch.trace import SETTLERS, capturing, phase_ms, span
-
-# the wrappers' kernels, by their names in csrc/, and the launch counter
-# each one's launches add to; the fold kernel runs behind every pair test,
-# which counts once for both, and the connection table's fills behind the
-# connection kernels, whose one counter both of them feed
-KERNELS = {"fused_intersect_kernel": (_ic, "LAUNCHES"),
-           "traverse_kernel": (_tc, "LAUNCHES"),
-           "expand_kernel": (_pc, "EXPAND_LAUNCHES"),
-           "pairtest_kernel": (_pc, "PAIRTEST_LAUNCHES"),
-           "fold_kernel": None,
-           "uniform3_kernel": (_rng, "LAUNCHES"),
-           "connect_prepare_kernel": (_bc, "LAUNCHES"),
-           "connect_finish_kernel": (_bc, "LAUNCHES"),
-           "connect_table_kernel": None}
-# the launch counters, each once
-_COUNTERS = list(dict.fromkeys(c for c in KERNELS.values() if c is not None))
 
 # tensors copied into graphs' static inputs since the last reset
 COPIES = 0
@@ -148,10 +129,10 @@ def copy_in(static, scene, static_inputs=(), inputs=()):
 
 
 def kernel_of(symbol):
-    """The name in :data:`KERNELS` of the kernel a device function's
-    symbol names (mangled, as the driver gives it, or demangled, as a
-    trace shows it), or None."""
-    for k in KERNELS:
+    """The name of the declared kernel (``cuda_build.kernels``) that a
+    device function's symbol names (mangled, as libcuda gives it, or
+    demangled, as a trace shows it), or None."""
+    for k in cuda_build.kernels():
         if f"{len(k)}{k}" in symbol or re.search(rf"(?<!\w){k}(?!\w)",
                                                  symbol):
             return k
@@ -174,17 +155,17 @@ def _driver(cu, fn, *args):
 def census(raw_graph):
     """The nodes of a cudaGraph_t, read with libcuda: a dict with
     ``nodes``, ``kernel_nodes``, ``event_nodes`` (event records) and the
-    number of kernel nodes of each kernel in :data:`KERNELS`."""
+    number of kernel nodes of each declared kernel."""
     cu = ctypes.CDLL("libcuda.so.1")
     graph = ctypes.c_void_p(raw_graph)
     n = ctypes.c_size_t(0)
     _driver(cu, "cuGraphGetNodes", graph, None, ctypes.byref(n))
     nodes = (ctypes.c_void_p * n.value)()
     _driver(cu, "cuGraphGetNodes", graph, nodes, ctypes.byref(n))
-    out = dict.fromkeys(KERNELS, 0)
+    out = dict.fromkeys(cuda_build.kernels(), 0)
     out.update(nodes=n.value, kernel_nodes=0, event_nodes=0)
     kind, params, name = ctypes.c_int(), _KernelNodeParams(), ctypes.c_char_p()
-    names = {}   # function handle -> its entry of KERNELS, or None
+    names = {}   # function handle -> its declared kernel, or None
     for node in nodes:
         node = ctypes.c_void_p(node)
         _driver(cu, "cuGraphNodeGetType", node, ctypes.byref(kind))
@@ -207,15 +188,6 @@ def census(raw_graph):
         if names[handle] is not None:
             out[names[handle]] += 1
     return out
-
-
-def _counts():
-    return [getattr(*c) for c in _COUNTERS]
-
-
-def _set_counts(values):
-    for c, v in zip(_COUNTERS, values):
-        setattr(*c, v)
 
 
 def _capture_stream(device):
@@ -257,7 +229,8 @@ class Graph:
         global CAPTURES
         dev = scene.device
         stream = _capture_stream(dev)
-        before = _counts()
+        launches = cuda_build.LAUNCHES
+        before = launches.copy()
         try:
             with torch.no_grad(), torch.cuda.device(dev):
                 stream.wait_stream(torch.cuda.current_stream(dev))
@@ -276,29 +249,25 @@ class Graph:
                     self.out = _capture(self.graph, stream, _pool(dev), name,
                                         fn, self.scene, self.inputs,
                                         self.begin, self.end)
-                recorded = [a - b for a, b in zip(_counts(), before)]
+                counted = [k for k, c in cuda_build.kernels().items() if c]
+                recorded = {k: launches[k] - before[k] for k in counted}
                 with span("graphs.census"):
                     self.census = census(self.graph.raw_cuda_graph())
                 with span("graphs.instantiate"):
                     self.graph.instantiate()
                     torch.cuda.synchronize(dev)
         finally:
-            _set_counts(before)
-        self.launches = [sum(self.census[k] for k, c in KERNELS.items()
-                             if c == counter) for counter in _COUNTERS]
-        if (self.launches != recorded or self.census["fold_kernel"]
-                != self.census["pairtest_kernel"]):
-            by_counter = {f"{m.__name__}.{a}": n
-                          for (m, a), n in zip(_COUNTERS, recorded)}
+            launches.clear()
+            launches.update(before)
+        self.launches = {k: self.census[k] for k in counted}
+        if self.launches != recorded:
             raise RuntimeError(
-                f"CUDA graph of {name}: its kernel nodes "
-                f"{ {k: self.census[k] for k in KERNELS} } are not the "
-                f"launches its capture recorded {by_counter}")
+                f"CUDA graph of {name}: its kernel nodes {self.launches} "
+                f"are not the launches its capture recorded {recorded}")
         self.stream = stream
         # the per-stream scratch the capture baked in (B2's ray counter,
         # the pair test's fold keys) lives as long as the graph
-        key = (dev.index, stream.cuda_stream)
-        self.scratch = (_tc._COUNTERS.get(key), _pc._KEYS.get(key))
+        self.scratch = cuda_build.scratch_of(dev, stream)
         self.info = {"name": name,
                      "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
         # the bytes a replay copies in: every static input, whole
@@ -323,7 +292,7 @@ class Graph:
                 self.graph.replay()
         caller.wait_stream(self.stream)
         self.replays += 1
-        _set_counts([c + n for c, n in zip(_counts(), self.launches)])
+        cuda_build.LAUNCHES.update(self.launches)
         with span("graphs.clone"):
             return _clone(self.out)
 

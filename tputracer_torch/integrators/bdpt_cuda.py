@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from tputracer_torch.cuda_build import Library, check
+
 # the vertex fields in the table's order (csrc/connect.cu's Field), with
 # each one's dtype and trailing shape
 FIELDS = {"p": (torch.float32, (3,)), "ng": (torch.float32, (3,)),
@@ -33,12 +35,24 @@ FIELDS = {"p": (torch.float32, (3,)), "ng": (torch.float32, (3,)),
 # the camera vertex's position and normal, broadcast over the lanes, are
 # never read: a t = 2 chain stops at the ratio of zs[1]
 _UNREAD = {(0, "p"), (0, "ng")}
+_WHO = "connection_radiance_cuda"
 
-# launches of connect_prepare_kernel and connect_finish_kernel since the
-# last reset (the table fills are not counted)
-LAUNCHES = 0
-
-_FN = None
+_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TABLE = ctypes.POINTER(ctypes.c_longlong)
+# each call first fills a device table with one connect_table_kernel per
+# kTableChunk entries, a number that varies with the call
+LIB = Library("connect.cu", "tpt_connect_error_string", {
+    # host table, its entries, the device table; nz, ny, V, n; kinds,
+    # albedo, eps; orig, dir, tmax, c, mask
+    "tpt_connect_prepare": ([_TABLE, _i32, _p, _i32, _i32, _i32, _i64,
+                             _p, _p, ctypes.c_float, _p, _p, _p, _p, _p],
+                            ["connect_prepare_kernel"]),
+    # host occlusion table, S, the device's, the vertex table; nz, ny, V,
+    # n, power; kinds, c, mask, out
+    "tpt_connect_finish": ([_TABLE, _i32, _p, _p, _i32, _i32, _i32, _i64,
+                            _i32, _p, _p, _p, _p],
+                           ["connect_finish_kernel"])},
+    uncounted=["connect_table_kernel"])
 
 
 def strategies(n_eye, n_light, n_verts):
@@ -47,47 +61,6 @@ def strategies(n_eye, n_light, n_verts):
     in ``connection_radiance``'s order."""
     return [(s, t) for t in range(2, n_eye + 1)
             for s in range(1, min(n_light, n_verts - t) + 1)]
-
-
-def load_kernel():
-    """Build (first use) and load the CUDA kernels; returns (prepare,
-    finish, errstr)."""
-    global _FN
-    if _FN is None:
-        from tputracer_torch.cuda_build import load_library
-
-        lib = load_library("connect.cu")
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        table = ctypes.POINTER(ctypes.c_longlong)
-        prepare = lib.tpt_connect_prepare
-        # host table, its entries, the device table; nz, ny, V, n;
-        # kinds, albedo, eps; orig, dir, tmax, c, mask; stream
-        prepare.argtypes = [table, i32, p, i32, i32, i32, i64,
-                            p, p, ctypes.c_float, p, p, p, p, p, p]
-        prepare.restype = i32
-        finish = lib.tpt_connect_finish
-        # host occlusion table, S, the device's, the vertex table; nz, ny,
-        # V, n, power; kinds, c, mask, out; stream
-        finish.argtypes = [table, i32, p, p, i32, i32, i32, i64, i32,
-                           p, p, p, p, p]
-        finish.restype = i32
-        lib.tpt_connect_error_string.argtypes = [i32]
-        lib.tpt_connect_error_string.restype = ctypes.c_char_p
-        _FN = (prepare, finish, lib.tpt_connect_error_string)
-    return _FN
-
-
-def _refuse(what):
-    raise ValueError(f"connection_radiance_cuda: {what}")
-
-
-def _checked(t, what, dtype, shape, device):
-    if (t.device != device or t.dtype != dtype or tuple(t.shape) != shape
-            or not t.is_contiguous()):
-        _refuse(f"want {what} a contiguous {dtype} {shape} tensor on "
-                f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-                f"{'' if t.is_contiguous() else ' (not contiguous)'}")
-    return t.data_ptr()
 
 
 def vertex_table(scene, ys, zs):
@@ -101,22 +74,15 @@ def vertex_table(scene, ys, zs):
     ptrs = []
     for v, vert in enumerate(list(zs) + list(ys)):
         for f, (dtype, tail) in FIELDS.items():
-            ptrs.append(0 if (v, f) in _UNREAD else _checked(
-                vert[f], f"vertex {v}'s {f}", dtype, (n,) + tail, dev))
-    _checked(scene.mat_kind, "mat_kind", torch.int32,
-             tuple(scene.mat_kind.shape[:1]), dev)
-    _checked(scene.mat_albedo, "mat_albedo", torch.float32,
-             (scene.mat_kind.shape[0], 3), dev)
+            ptrs.append(0 if (v, f) in _UNREAD else check(
+                _WHO, f"vertex {v}'s {f}", vert[f], dtype, (n,) + tail, dev))
+    check(_WHO, "mat_kind", scene.mat_kind, torch.int32,
+          scene.mat_kind.shape[:1], dev)
+    check(_WHO, "mat_albedo", scene.mat_albedo, torch.float32,
+          (scene.mat_kind.shape[0], 3), dev)
     if dev.type != "cuda":
-        _refuse(f"want CUDA vertices, got {dev}")
+        raise ValueError(f"{_WHO}: want CUDA vertices, got {dev}")
     return ptrs
-
-
-def _launch(fn, errstr, name, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {errstr(err).decode()} "
-                           f"({err})")
 
 
 def connection_radiance_cuda(scene, cfg, ys, zs, occl=None, stats_acc=None):
@@ -124,7 +90,6 @@ def connection_radiance_cuda(scene, cfg, ys, zs, occl=None, stats_acc=None):
     of the s >= 1, t >= 2 strategies, its bits; ``occl`` (default
     ``accel.occluded``) is called once a strategy, as there, and
     ``stats_acc["rays_shadow"]`` gains the candidate connections' count."""
-    global LAUNCHES
     from tputracer_torch.accel import occluded
 
     occl = occluded if occl is None else occl
@@ -135,7 +100,6 @@ def connection_radiance_cuda(scene, cfg, ys, zs, occl=None, stats_acc=None):
     n_s = len(strategies(len(zs), len(ys), n_verts))
     if n_s == 0 or n == 0:
         return torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    prepare, finish, errstr = load_kernel()
     f32 = dict(dtype=torch.float32, device=dev)
     orig = torch.empty((n_s, n, 3), **f32)
     dirs = torch.empty((n_s, n, 3), **f32)
@@ -144,36 +108,27 @@ def connection_radiance_cuda(scene, cfg, ys, zs, occl=None, stats_acc=None):
     mask = torch.empty((n_s, n), dtype=torch.bool, device=dev)
     table = torch.empty(len(ptrs), dtype=torch.int64, device=dev)
     args = (len(zs), len(ys), n_verts, n)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(prepare, errstr, "connect_prepare",
-                (ctypes.c_longlong * len(ptrs))(*ptrs), len(ptrs),
-                table.data_ptr(), *args, scene.mat_kind.data_ptr(),
-                scene.mat_albedo.data_ptr(), scene.eps, orig.data_ptr(),
-                dirs.data_ptr(), tmax.data_ptr(), contrib.data_ptr(),
-                mask.data_ptr(), stream)
-        LAUNCHES += 1
-        # only candidate connections trace shadow rays (tmax = 0 on the
-        # rest); their count is the shadow-ray stat, added a strategy at a
-        # time as the torch version adds it, so the float32 running sum
-        # rounds alike once it passes 2^24
-        if stats_acc is not None:
-            for count in mask.sum(dim=1, dtype=torch.float32):
-                stats_acc["rays_shadow"] = (
-                    stats_acc.get("rays_shadow", 0.0) + count)
-        # held until the second kernel is queued, so no allocation reuses
-        # their memory before it reads them
-        occs = [occl(scene, orig[k], dirs[k], tmax=tmax[k])
-                for k in range(n_s)]
-        occ_ptrs = [_checked(o, f"occlusion result {k}", torch.bool, (n,),
-                             dev) for k, o in enumerate(occs)]
-        out = torch.empty((n, 3), **f32)
-        occ_table = torch.empty(n_s, dtype=torch.int64, device=dev)
-        _launch(finish, errstr, "connect_finish",
-                (ctypes.c_longlong * n_s)(*occ_ptrs), n_s,
-                occ_table.data_ptr(),
-                table.data_ptr(), *args, int(bool(cfg.mis_power)),
-                scene.mat_kind.data_ptr(), contrib.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), stream)
-        LAUNCHES += 1
+    LIB.launch("tpt_connect_prepare", dev,
+               (ctypes.c_longlong * len(ptrs))(*ptrs), len(ptrs), table,
+               *args, scene.mat_kind, scene.mat_albedo, scene.eps, orig, dirs,
+               tmax, contrib, mask)
+    # only candidate connections trace shadow rays (tmax = 0 on the rest);
+    # their count is the shadow-ray stat, added a strategy at a time as the
+    # torch version adds it, so the float32 running sum rounds alike once
+    # it passes 2^24
+    if stats_acc is not None:
+        for count in mask.sum(dim=1, dtype=torch.float32):
+            stats_acc["rays_shadow"] = (stats_acc.get("rays_shadow", 0.0)
+                                        + count)
+    # held until the second kernel is queued, so no allocation reuses their
+    # memory before it reads them
+    occs = [occl(scene, orig[k], dirs[k], tmax=tmax[k]) for k in range(n_s)]
+    occ_ptrs = [check(_WHO, f"occlusion result {k}", o, torch.bool, (n,), dev)
+                for k, o in enumerate(occs)]
+    out = torch.empty((n, 3), **f32)
+    occ_table = torch.empty(n_s, dtype=torch.int64, device=dev)
+    LIB.launch("tpt_connect_finish", dev,
+               (ctypes.c_longlong * n_s)(*occ_ptrs), n_s, occ_table, table,
+               *args, int(bool(cfg.mis_power)), scene.mat_kind, contrib, mask,
+               out)
     return out

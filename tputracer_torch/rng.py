@@ -20,7 +20,8 @@ import ctypes
 
 import torch
 
-from tputracer_torch.trace import span
+from tputracer_torch.cuda_build import Library, check
+from tputracer_torch.trace import span
 
 # Dimension-group slots within one bounce (same values as tputracer.rng).
 SALT_STRIDE = 8
@@ -34,10 +35,10 @@ SLOT_LBSDF = 6
 
 _INV_2_24 = 1.0 / 16777216.0
 
-# kernel launches made by uniform3_cuda since the last reset
-LAUNCHES = 0
-
-_FN = None
+_u32, _i64, _p = ctypes.c_uint32, ctypes.c_longlong, ctypes.c_void_p
+LIB = Library("rng.cu", "tpt_rng_error_string", {
+    # uid, n, salt, seed, stride, out
+    "tpt_uniform3": ([_p, _i64, _u32, _u32, _i64, _p], ["uniform3_kernel"])})
 
 
 def _as_i32(v: int) -> int:
@@ -85,48 +86,20 @@ def uniform3_plain(uid, salt, seed):
     return _to_unit(x), _to_unit(y), _to_unit(z)
 
 
-def load_kernel():
-    """Build (first use) and load the CUDA kernel; returns (fn, errstr)."""
-    global _FN
-    if _FN is None:
-        from tputracer_torch.cuda_build import load_library
-
-        lib = load_library("rng.cu")
-        fn = lib.tpt_uniform3
-        p, u32, i64 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_longlong
-        fn.argtypes = [p, i64, u32, u32,   # uid, n, salt, seed
-                       i64, p, p]          # stride, out, stream
-        fn.restype = ctypes.c_int
-        lib.tpt_rng_error_string.argtypes = [ctypes.c_int]
-        lib.tpt_rng_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.tpt_rng_error_string)
-    return _FN
-
-
 def uniform3_cuda(uid, salt, seed):
     """Launch the kernel on a contiguous (n,) int64 CUDA ``uid``: three
     (n,) float32 tensors, the rows of one allocation."""
-    global LAUNCHES
-    if (uid.device.type != "cuda" or uid.dtype != torch.int64
-            or uid.dim() != 1 or not uid.is_contiguous()):
-        raise ValueError(
-            f"uniform3_cuda: want a contiguous (n,) int64 CUDA uid, got "
-            f"{uid.dtype} {tuple(uid.shape)} on {uid.device}"
-            f"{'' if uid.is_contiguous() else ' (not contiguous)'}")
+    dev = uid.device
+    if dev.type != "cuda":
+        raise ValueError(f"uniform3_cuda needs CUDA tensors, got {dev}")
+    check("uniform3_cuda", "uid", uid, torch.int64, (uid.numel(),), dev)
     n = uid.shape[0]
     # rows a multiple of 4 floats apart, so each starts 16-byte aligned
     stride = (n + 3) // 4 * 4
-    out = torch.empty((3, stride), dtype=torch.float32, device=uid.device)
+    out = torch.empty((3, stride), dtype=torch.float32, device=dev)
     if n:
-        fn, errstr = load_kernel()
-        with torch.cuda.device(uid.device):
-            stream = torch.cuda.current_stream(uid.device).cuda_stream
-            err = fn(uid.data_ptr(), n, int(salt) & 0xFFFFFFFF,
-                     int(seed) & 0xFFFFFFFF, stride, out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"tpt_uniform3 launch failed: "
-                               f"{errstr(err).decode()} ({err})")
-        LAUNCHES += 1
+        LIB.launch("tpt_uniform3", dev, uid, n, int(salt) & 0xFFFFFFFF,
+                   int(seed) & 0xFFFFFFFF, stride, out)
     return out[:, :n].unbind(0)
 
 
