@@ -163,7 +163,7 @@ Run from the root of a checkout.  Phases, each printing one line:
      graph added to the shared pool, the copy-in (tensors, and its ms
      between CUDA events, timed here), the peak memory. Then config 4's
      trace_bdpt_rows through graphs.call: L_own and the ray counts bit for
-     bit.
+     bit, 2 connection and 2 splat launches a chunk.
  18. sampler: the sampler kernel (csrc/rng.cu, rng.uniform3_cuda) against
      rng.uniform3_plain bit for bit at 2^16 and 2^20 lanes (and 2^20 + 5),
      uids over the whole int64 range, salts and seeds above 2^31; timed
@@ -187,7 +187,16 @@ Run from the root of a checkout.  Phases, each printing one line:
      benchmark's frame (512x512, 16 spp, chunks of 2^20) through
      api.render_bdpt (eager, capture, replay): 8 launches a call
      (cuda_build.LAUNCHES of the two kernels), the graph holding 4 of each
-     kernel.
+     kernel.  Then BDPT's t = 1 splat kernels (the same source,
+     bdpt_cuda.t1_splats_cuda) on that chunk against t1_splats_plain: the
+     shadow-ray count bit for bit and the film within the bound of two
+     orders of the same positive sums (splat_film_bound), and on a chunk
+     of 128 paths, whose splats land on distinct pixels of a 4096^2 film,
+     the film bit for bit; the two kernels timed without shadow rays
+     beside their bound (splat_bytes_per_lane), the plain version
+     likewise, and the whole splat phase (its 5 shadow-ray calls
+     included) inside a CUDA graph; then the frame again: 8 splat
+     launches a call, 4 of each kernel and 16 table fills in its graph.
 
 Phases 4, 7, 10, 12, 13 and 16 go through the same entry points, whose
 first call of a key runs eagerly, so their counted calls are eager ones;
@@ -208,6 +217,7 @@ exits non-zero without that last line; there is no CPU fallback.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -1616,6 +1626,14 @@ def connect_launches():
             + LAUNCHES["connect_finish_kernel"])
 
 
+def splat_launches():
+    """cuda_build's launch counts of the two splat kernels, summed (their
+    table fills are not counted)."""
+    from tputracer_torch.cuda_build import LAUNCHES
+
+    return LAUNCHES["splat_prepare_kernel"] + LAUNCHES["splat_finish_kernel"]
+
+
 def bdpt_once(name, scene, cfg, want):
     """One counted render_bdpt of ``scene`` at ``cfg``, timed, that must
     give a finite image and launch the kernels ``want`` times."""
@@ -2931,10 +2949,18 @@ def bdpt_rows_bits():
                             dtype=torch.int64, device=s.device)
         return trace_bdpt_rows(s, uids, cfg)
 
+    chunks = cfg.width * cfg.height * cfg.spp // cfg.chunk_size
     try:
         L_e, sp_e, st_e = rows(sc)
         for _ in range(3):   # eager on the capture stream, capture, replay
+            before = connect_launches(), splat_launches()
             L_g, sp_g, st_g = graphs.call("trace_bdpt_rows", rows, sc, cfg)
+            torch.cuda.synchronize()
+            launches = (connect_launches() - before[0],
+                        splat_launches() - before[1])
+            check(launches == (2 * chunks, 2 * chunks),
+                  f"config 4: {launches} connection and splat launches for "
+                  f"{chunks} chunks, want 2 of each a chunk")
             check(torch.equal(L_g, L_e), "config 4: the graphed L_own is "
                                          "not the eager one, bit for bit")
             check(all(torch.equal(st_g[k], st_e[k]) for k in st_e),
@@ -3192,6 +3218,200 @@ def connect_bits(scene, cfg, ys, zs):
     return float((L_k - L_p).abs().max())
 
 
+# a splat strategy's bytes a lane between the two kernels: the first
+# writes the shadow ray's direction, tmax, the contribution, the mask and
+# the pixel (12 + 4 + 12 + 1 + 4); the second reads the mask, the
+# occlusion byte, the contribution and the pixel (1 + 1 + 12 + 4)
+SPLAT_STRATEGY_BYTES = 33 + 18
+
+
+def splat_bytes_per_lane(n_light, n_verts):
+    """The least bytes a lane of the two splat kernels moves: every vertex
+    field each kernel reads, once a kernel (the first reads each light
+    vertex's point, normal, throughput and flags, and from s = 2 its
+    direction and material; the second the MIS chains: the vertex, its
+    predecessor's point and normal, and the chains' pdfs and flags),
+    SPLAT_STRATEGY_BYTES a strategy and the lane's shadow-ray origin (12).
+    The film's atomics, 12 bytes a surviving splat, and its zeroing come
+    on top (splat_bytes)."""
+    from tputracer_torch.integrators.bdpt_cuda import splat_strategies
+
+    first, second = set(), set()
+    pairs = splat_strategies(n_light, n_verts)
+    for s, _ in pairs:
+        y = s - 1
+        first |= {(y, f) for f in ("p", "ng", "beta", "valid", "delta")}
+        second |= {(y, "p"), (y, "ng")}
+        if s >= 2:
+            first |= {(y, "wo"), (y, "mat")}
+            second |= {(y, "wo"), (y, "mat"), (y - 1, "p"), (y - 1, "ng")}
+        for a in range(s):
+            second |= {(a, "pdf_fwd"), (a, "delta")}
+            if a > 0:
+                second.add((a - 1, "delta"))
+            if a <= s - 3:   # the two nearest come from the kernel
+                second.add((a, "pdf_rev"))
+    reads = sum(FIELD_BYTES[f] for fields in (first, second)
+                for _, f in fields)
+    return reads + SPLAT_STRATEGY_BYTES * len(pairs) + 12
+
+
+@contextlib.contextmanager
+def splat_adds():
+    """The (pixel ids, values) that each index_add_ adds while the block
+    runs, one pair a t1_splats_plain strategy: a masked lane's id is the
+    dump row H * W and its value 0."""
+    calls = []
+    add = torch.Tensor.index_add_
+
+    def spy(self, dim, index, source, *args, **kwargs):
+        calls.append((index.clone(), source.clone()))
+        return add(self, dim, index, source, *args, **kwargs)
+
+    torch.Tensor.index_add_ = spy
+    try:
+        yield calls
+    finally:
+        torch.Tensor.index_add_ = add
+
+
+def splat_film_bound(adds, film):
+    """Per pixel, the most two sums of the same nonnegative splats in two
+    orders can differ: 2 (k - 1) u times their sum for k splats (u =
+    2^-24, recursive summation from 0), with 0.1% for the rounding of
+    ``film`` itself."""
+    n_pix = film.shape[0]
+    ids = torch.cat([i for i, _ in adds])
+    k = torch.bincount(ids[ids < n_pix], minlength=n_pix).to(film.dtype)
+    return (2.0 * torch.clamp(k - 1.0, min=0.0) * 2.0 ** -24 * 1.001)[
+        :, None] * film.abs()
+
+
+def splat_bits(scene, cfg, ys, zs):
+    """The splat kernels' route against t1_splats_plain on these vertices:
+    the shadow-ray count bit for bit, two launches, the film within
+    splat_film_bound.  Returns (the largest difference over the bound's,
+    the largest absolute difference)."""
+    from tputracer_torch.integrators import bdpt, bdpt_cuda
+
+    got, want = {}, {}
+    before = splat_launches()
+    film_k = bdpt_cuda.t1_splats_cuda(scene, cfg, ys, zs, stats_acc=got)
+    with splat_adds() as adds:
+        film_p = bdpt.t1_splats_plain(scene, cfg, ys, zs, stats_acc=want)
+    torch.cuda.synchronize()
+    check(splat_launches() == before + 2,
+          f"splat: {splat_launches() - before} launches for one call")
+    check(torch.equal(got["rays_shadow"], want["rays_shadow"]),
+          "splat: the shadow-ray count differs")
+    check(float(film_p.sum()) > 0.0, "splat: no splats")
+    diff = (film_k - film_p).abs()
+    tol = splat_film_bound(adds, film_p)
+    check(bool((diff <= tol).all()),
+          f"splat: the film is off by {float((diff - tol).max())} past the "
+          f"bound of its sums' order (power={cfg.mis_power})")
+    return float((diff / torch.clamp(tol, min=1e-30)).max()), float(diff.max())
+
+
+def splat_unique_bits(scene, cfg):
+    """The splat kernels against t1_splats_plain on a chunk of 128 paths
+    whose splats land on distinct pixels of a 4096^2 film: the film bit
+    for bit, so each splat's contribution and pixel are the plain
+    version's."""
+    from tputracer_torch.integrators import bdpt, bdpt_cuda
+
+    cfg = cfg.with_(width=4096, height=4096)
+    n_pix = cfg.width * cfg.height
+    uid = torch.arange(128, dtype=torch.int64, device="cuda")
+    ys = bdpt.light_subpaths(scene, uid, cfg)
+    zs = bdpt.eye_subpaths(scene, uid, cfg)
+    with splat_adds() as adds:
+        film_p = bdpt.t1_splats_plain(scene, cfg, ys, zs)
+    ids = torch.cat([i for i, _ in adds])
+    ids = ids[ids < n_pix]
+    check(ids.numel() > 100 and ids.unique().numel() == ids.numel(),
+          f"splat: {ids.numel()} splats on {ids.unique().numel()} pixels")
+    film_k = bdpt_cuda.t1_splats_cuda(scene, cfg, ys, zs)
+    check(torch.equal(film_k, film_p), "splat: on distinct pixels the film "
+                                       "is not t1_splats_plain's bit for bit")
+    return ids.numel()
+
+
+def phase_splat(sc, n, frame):
+    """The rest of phase 19: BDPT's splat kernels against the torch version
+    on a benchmark chunk, timed, and the benchmark's frame graphed."""
+    from tputracer_torch import graphs
+    from tputracer_torch.api import render_bdpt
+    from tputracer_torch.config import BdptConfig
+    from tputracer_torch.integrators import bdpt, bdpt_cuda
+
+    t0 = time.perf_counter()
+    cfg = BdptConfig(width=1024, height=1024, spp=1, max_bounces=4,
+                     chunk_size=n)
+    uid = torch.arange(n, dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        unique = {p: splat_unique_bits(sc, cfg.with_(mis_power=p))
+                  for p in (False, True)}
+        zs = bdpt.eye_subpaths(sc, uid, cfg)
+        ys = bdpt.light_subpaths(sc, uid, cfg)
+        errs = [splat_bits(sc, cfg.with_(mis_power=p), ys, zs)
+                for p in (False, True)]
+        clear = torch.zeros(n, dtype=torch.bool, device="cuda")
+
+        def unoccluded(s, o, d, tmax):
+            return clear
+
+        def kernels():
+            bdpt_cuda.t1_splats_cuda(sc, cfg, ys, zs, occl=unoccluded)
+
+        def plain():
+            bdpt.t1_splats_plain(sc, cfg, ys, zs, occl=unoccluded)
+
+        def phase():
+            bdpt.t1_splats(sc, cfg, ys, zs)
+
+        def plain_phase():
+            bdpt.t1_splats_plain(sc, cfg, ys, zs)
+
+        nbytes = splat_bytes_per_lane(len(ys), cfg.max_bounces + 2)
+        film_bytes = 2 * 12 * cfg.width * cfg.height   # zeroed, then added
+        bound_ms, bound_by = bound(0, nbytes * n + film_bytes)
+        times = dict(lanes=n, bytes_per_lane=nbytes, film_bytes=film_bytes,
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     ms=cuda_ms(kernels, 2, 5), device_ms=device_ms(kernels),
+                     graph_ms=graph_ms(kernels),
+                     plain_ms=cuda_ms(plain, 2, 5),
+                     plain_graph_ms=graph_ms(plain, reps=2),
+                     phase_graph_ms=graph_ms(phase),
+                     plain_phase_graph_ms=graph_ms(plain_phase, reps=2))
+    emit("splat", **times)
+    del zs, ys
+    graphs.clear()
+    launches = []
+    for _ in range(3):   # eager, the capture, a replay
+        before = splat_launches()
+        render_bdpt(sc, frame)
+        torch.cuda.synchronize()
+        launches.append(splat_launches() - before)
+    census = graphs.graphs()[0].census
+    nodes = {k: census[k] for k in ("splat_prepare_kernel",
+                                    "splat_finish_kernel",
+                                    "connect_table_kernel")}
+    check(launches == [8] * 3, f"splat: launches {launches} a frame, want 8")
+    # the table fills: 2 a chunk for the connections, 2 for the splats
+    check(list(nodes.values()) == [4, 4, 16],
+          f"splat: the frame's graph holds {nodes}")
+    graphs.clear()
+    res = dict(frame_launches=launches, graph_nodes=nodes,
+               kernel_nodes=census["kernel_nodes"],
+               unique_pixel_splats=unique,
+               max_over_bound=max(e[0] for e in errs),
+               max_abs_err=max(e[1] for e in errs),
+               seconds=time.perf_counter() - t0)
+    emit("splat", **res)
+    return times, res
+
+
 def phase_connect():
     """Phase 19: BDPT's connection kernels against the torch version on a
     benchmark chunk, timed, and the benchmark's frame graphed."""
@@ -3256,14 +3476,15 @@ def phase_connect():
                                     "connect_table_kernel")}
     check(launches == [8] * 3, f"connect: launches {launches} a frame, "
                                f"want 8")
-    check(list(nodes.values()) == [4, 4, 8],
+    # the table fills: 2 a chunk for the connections, 2 for the splats
+    check(list(nodes.values()) == [4, 4, 16],
           f"connect: the frame's graph holds {nodes}")
     graphs.clear()
     res = dict(frame_launches=launches, graph_nodes=nodes,
                kernel_nodes=census["kernel_nodes"], max_abs_err=max_abs,
                seconds=time.perf_counter() - t0)
     emit("connect", **res)
-    return times, res
+    return times, res, phase_splat(sc, n, frame)
 
 
 def main():
@@ -3297,7 +3518,7 @@ def main():
     free_graphs()
     phase_graphs(mesh)
     s_times, s_renders, s_max_abs = phase_sampler(mesh)
-    c_times, c_res = phase_connect()
+    c_times, c_res, (sp_times, sp_res) = phase_connect()
     emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
@@ -3393,6 +3614,19 @@ def main():
         **{k: c_times[k] for k in ("lanes", "ms", "device_ms", "graph_ms",
                                    "plain_ms", "plain_graph_ms", "bound_ms",
                                    "bound_by")},
+        "library_ms": None,
+    }, {
+        "name": "splat",
+        "route": "cuda",
+        "source": "tputracer_torch/csrc/connect.cu",
+        "replaces": None,    # no Pallas counterpart: XLA fuses the splats
+        # the splat kernels' launches over a replay of the frame
+        "launches": sp_res["frame_launches"][-1],
+        "max_abs_err": sp_res["max_abs_err"],
+        **{k: sp_times[k] for k in ("lanes", "ms", "device_ms", "graph_ms",
+                                    "plain_ms", "plain_graph_ms",
+                                    "phase_graph_ms", "plain_phase_graph_ms",
+                                    "bound_ms", "bound_by")},
         "library_ms": None,
     }]}), flush=True)
     print(card_line(), flush=True)

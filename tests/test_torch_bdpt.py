@@ -70,9 +70,14 @@ def test_camera_and_density_helpers_match_jax(helper):
         args = (r.uniform(0.01, 2.0, n).astype(np.float32),
                 r.uniform(0.0, 1.0, (n, 3)).astype(np.float32),
                 r.uniform(0.0, 1.0, (n, 3)).astype(np.float32), unit(r, n))
-        # keep |n_to . w| away from 0, where the cosine is all rounding
+        # keep |n_to . w| at least half of |w|: XLA may sum the dot in
+        # another order than the port's x + y + z, or with FMAs (jax.jit of
+        # the same function does), which moves it by up to 4u |w| (u =
+        # 2^-24), so by 4u / 0.5 = 4.8e-7 of itself here; at the 1e-2 this
+        # filter once kept, that is 2.4e-5, and 15 of 4,057 lanes of the
+        # jitted reference fell outside the rtol of 1e-6
         w = args[2] - args[1]
-        keep = np.abs((args[3] * w).sum(1)) > 1e-2 * np.linalg.norm(w, axis=1)
+        keep = np.abs((args[3] * w).sum(1)) > 0.5 * np.linalg.norm(w, axis=1)
         args = tuple(a[keep] for a in args)
         want = jb._convert_density(*(jnp.asarray(a) for a in args))
         got = tb._convert_density(*(torch.from_numpy(a) for a in args))

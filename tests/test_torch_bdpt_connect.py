@@ -39,7 +39,7 @@ def test_cpu_vertices_take_the_torch_route(name, power):
     and the chunk's bdpt.connect span counts kernel 0."""
     cfg = CFG.with_(mis_power=power)
     sc, ys, zs = vertices(name, cfg=cfg)
-    assert not bdpt.connect_on_card(sc, ys, zs)
+    assert not bdpt.bdpt_on_card(sc, ys, zs)
     launches = cuda_build.LAUNCHES.copy()
     got, want = {}, {}
     L = bdpt.connection_radiance(sc, cfg, ys, zs, stats_acc=got)
@@ -60,8 +60,8 @@ def test_other_devices_have_no_connection_route():
     sc, ys, zs = vertices(lanes=8)
     meta = [{k: torch.empty_like(x, device="meta") for k, x in v.items()}
             for v in zs]
-    with pytest.raises(ValueError, match="no connection route"):
-        bdpt.connect_on_card(sc, ys, meta)
+    with pytest.raises(ValueError, match="no BDPT kernel route"):
+        bdpt.bdpt_on_card(sc, ys, meta)
 
 
 def test_the_wrapper_refuses_before_any_build(monkeypatch):

@@ -16,7 +16,11 @@ graph; the sampler kernel (csrc/rng.cu) against uniform3_plain bit for
 bit, and graphed renders through it against those through the torch
 sampler; BDPT's connection kernels (csrc/connect.cu, ``-k connect``)
 against connection_radiance_plain bit for bit, graphed and eager, and a
-BDPT gradient on the torch route.  The ray sets are chip_smoke.py's.
+BDPT gradient on the torch route; BDPT's splat kernels (the same source,
+``-k splat``) against t1_splats_plain: the shadow-ray count bit for bit,
+the film bit for bit where the splats land on distinct pixels and
+elsewhere within the bound of its atomic sums' order, graphed and eager.
+The ray sets and the splat's bound are chip_smoke.py's.
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -33,7 +37,9 @@ import torch
 
 from chip_smoke import (bounce_rays, box_soup, connect_launches, dead_rays,
                         face_rays, fallback_input, holey_tables, random_rays,
-                        room_rays, run_rays, soup_rays, soup_scene, tie_pairs)
+                        room_rays, run_rays, soup_rays, soup_scene,
+                        splat_adds, splat_film_bound, splat_launches,
+                        tie_pairs)
 from tputracer_torch.accel import clustered as cl
 from tputracer_torch.accel import intersect_cuda as ic
 from tputracer_torch.accel import pairs
@@ -1163,7 +1169,7 @@ def test_connect_kernels_match_plain(case):
     sc, ys, zs = connect_vertices(name, lanes, cfg)
     got, want = {}, {}
     with torch.no_grad():
-        assert bdpt.connect_on_card(sc, ys, zs)
+        assert bdpt.bdpt_on_card(sc, ys, zs)
         launches, walks = connect_launches(), LAUNCHES[B2]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -1239,7 +1245,8 @@ def test_graph_bdpt_connect_kernels_match_eager_plain(monkeypatch):
     g = graphs.graphs()[0]
     assert g.census["connect_prepare_kernel"] == chunks
     assert g.census["connect_finish_kernel"] == chunks
-    assert g.census["connect_table_kernel"] == 2 * chunks
+    # two table fills a chunk for the connections, two for the splats
+    assert g.census["connect_table_kernel"] == 4 * chunks
     with monkeypatch.context() as m:
         m.setattr(bdpt, "connection_radiance", bdpt.connection_radiance_plain)
         trace.reset()
@@ -1258,10 +1265,11 @@ def test_graph_bdpt_connect_kernels_match_eager_plain(monkeypatch):
 @pytest.mark.cuda
 def test_bdpt_gradient_takes_the_torch_route(monkeypatch):
     """A BDPT gradient on the card (albedo and emission requiring grad)
-    runs the connections on the torch route: no connection kernel, the
-    kernel count 0 on every bdpt.connect span, and the gradients of the
-    same call with connection_radiance_plain in its place (within the
-    splat's float tolerance: index_add_ adds in no fixed order)."""
+    runs the connections and the splats on the torch route: no connection
+    or splat kernel, the kernel count 0 on every bdpt.connect and
+    bdpt.splat span, and the gradients of the same call with
+    connection_radiance_plain in its place (within the splat's float
+    tolerance: index_add_ adds in no fixed order)."""
     from tputracer_torch import api, trace
     from tputracer_torch.integrators import bdpt, bdpt_cuda
 
@@ -1279,12 +1287,14 @@ def test_bdpt_gradient_takes_the_torch_route(monkeypatch):
         raise AssertionError("the kernels' route under a gradient")
 
     trace.reset()
-    launches = connect_launches()
+    launches = connect_launches(), splat_launches()
     with monkeypatch.context() as m:
         m.setattr(bdpt_cuda, "connection_radiance_cuda", refuse)
+        m.setattr(bdpt_cuda, "t1_splats_cuda", refuse)
         loss, g = grads()
-    assert connect_launches() == launches
+    assert (connect_launches(), splat_launches()) == launches
     assert [r.counts["kernel"] for r in trace.records("bdpt.connect")] == [0]
+    assert [r.counts["kernel"] for r in trace.records("bdpt.splat")] == [0]
     with monkeypatch.context() as m:
         m.setattr(bdpt, "connection_radiance", bdpt.connection_radiance_plain)
         loss_p, g_p = grads()
@@ -1292,3 +1302,164 @@ def test_bdpt_gradient_takes_the_torch_route(monkeypatch):
     for k in g_p:
         assert bool(torch.isfinite(g[k]).all()) and float(g[k].abs().sum()) > 0
         torch.testing.assert_close(g[k], g_p[k], rtol=1e-4, atol=1e-7)
+
+
+# (scene, lanes, max_bounces, mis_power): the caustic box at a chunk of
+# 2^16 and of 2^20 paths; config 2's spheres, whose delta vertices splat
+# nothing; a clustered mesh, whose camera rays go through the traversal
+# kernel between the kernels
+SPLAT_CASES = (
+    [("caustic", lanes, b, power) for lanes in (1 << 16, 1 << 20)
+     for b in (3, 4, 6) for power in (False, True)]
+    + [("spheres", 1 << 16, 4, False), ("mesh", 1 << 16, 4, True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SPLAT_CASES,
+                         ids=["-".join(map(str, c)) for c in SPLAT_CASES])
+def test_splat_kernels_match_plain(case):
+    """The splat kernels (csrc/connect.cu) give t1_splats_plain's
+    shadow-ray count bit for bit, in one launch of each, and its film
+    within the bound of two orders of the same nonnegative sums
+    (chip_smoke.splat_film_bound): the kernels add with float atomics and
+    index_add_ too, each in no fixed order.  Nothing in the kernels'
+    route waits on the card."""
+    from tputracer_torch.integrators import bdpt
+
+    need_card()
+    name, lanes, bounces, power = case
+    cfg = BdptConfig(width=1024, height=1024, spp=1, max_bounces=bounces,
+                     mis_power=power)
+    sc, ys, zs = connect_vertices(name, lanes, cfg)
+    got, want = {}, {}
+    with torch.no_grad():
+        assert bdpt.bdpt_on_card(sc, ys, zs)
+        names = ("splat_prepare_kernel", "splat_finish_kernel", B2)
+        before = [LAUNCHES[k] for k in names]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            film_k = bdpt.t1_splats(sc, cfg, ys, zs, stats_acc=got)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = [LAUNCHES[k] - b for k, b in zip(names, before)]
+        with splat_adds() as adds:
+            film_p = bdpt.t1_splats_plain(sc, cfg, ys, zs, stats_acc=want)
+    torch.cuda.synchronize()
+    # one traversal launch a strategy on the mesh, none on the boxes
+    assert launches == [1, 1, bounces + 1 if name == "mesh" else 0]
+    assert film_k.shape == (1024 * 1024, 3) and film_k.is_contiguous()
+    assert torch.equal(got["rays_shadow"], want["rays_shadow"])
+    assert bool(((film_k - film_p).abs()
+                 <= splat_film_bound(adds, film_p)).all())
+    assert float(film_p.sum()) > 0.0 and float(want["rays_shadow"]) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("power", [False, True], ids=["balance", "power"])
+@pytest.mark.parametrize("name", ["caustic", "mesh"])
+def test_splat_kernels_on_distinct_pixels_match_plain_bit_for_bit(name,
+                                                                  power):
+    """On a chunk of 128 paths whose splats land on distinct pixels of a
+    4096^2 film (the plain route's pixel ids asserted unique first; the
+    light's own image is small, so more paths or a smaller film share
+    pixels), the kernels' film is t1_splats_plain's bit for bit: each
+    splat's contribution (c times its MIS weight) and pixel are the torch
+    version's."""
+    from tputracer_torch.integrators import bdpt
+
+    need_card()
+    cfg = BdptConfig(width=4096, height=4096, spp=1, max_bounces=4,
+                     mis_power=power)
+    sc, ys, zs = connect_vertices(name, 128, cfg)
+    with torch.no_grad():
+        with splat_adds() as adds:
+            film_p = bdpt.t1_splats_plain(sc, cfg, ys, zs)
+        film_k = bdpt.t1_splats(sc, cfg, ys, zs)
+    ids = torch.cat([i for i, _ in adds])
+    ids = ids[ids < 4096 * 4096]
+    assert ids.numel() > 50 and ids.unique().numel() == ids.numel()
+    assert torch.equal(film_k, film_p)
+
+
+@pytest.mark.cuda
+def test_splat_kernels_refuse_what_they_do_not_take():
+    """The wrapper refuses, before any launch, vertices that are not
+    contiguous or not of their dtype, a camera tensor on another device,
+    and an occlusion result that is not an (n,) bool tensor."""
+    import dataclasses
+
+    from tputracer_torch.integrators import bdpt_cuda
+
+    need_card()
+    cfg = BdptConfig(width=64, height=64, spp=1, max_bounces=3)
+    sc, ys, zs = connect_vertices("caustic", 4096, cfg)
+    launches = splat_launches()
+    strided = torch.empty((4096, 6), device="cuda")[:, :3]
+    for vert, field, bad in ((1, "p", strided),
+                             (0, "beta", ys[0]["beta"].double()),
+                             (2, "mat", ys[2]["mat"].long()),
+                             (0, "valid", ys[0]["valid"][:-1])):
+        kept = ys[vert][field]
+        ys[vert][field] = bad
+        try:
+            with pytest.raises(ValueError, match="t1_splats_cuda"):
+                bdpt_cuda.t1_splats_cuda(sc, cfg, ys, zs)
+        finally:
+            ys[vert][field] = kept
+    cpu_cam = dataclasses.replace(sc, camera=sc.camera.to("cpu"))
+    with pytest.raises(ValueError, match="t1_splats_cuda: want camera o"):
+        bdpt_cuda.t1_splats_cuda(cpu_cam, cfg, ys, zs)
+    with pytest.raises(ValueError, match="occlusion result 0"):
+        bdpt_cuda.t1_splats_cuda(
+            sc, cfg, ys, zs, occl=lambda s, o, d, tmax: (tmax > 0).float())
+    assert splat_launches() == launches + 1   # the last call's first kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("power", [False, True], ids=["balance", "power"])
+def test_graph_bdpt_splat_kernels_match_eager_plain(power, monkeypatch):
+    """trace_bdpt_rows of config 4's scene through graphs.call (eager
+    first call, the capture, a replay) takes the splat kernels, two
+    launches a chunk that the graph holds as kernel nodes, and gives the
+    ray counts of the eager render with the splats on the torch route bit
+    for bit, and its splat film within the bound of the sums' order; each
+    chunk's bdpt.splat span counts kernel 1, and 0 on that route."""
+    from tputracer_torch import graphs, trace
+    from tputracer_torch.integrators import bdpt
+
+    need_card()
+    graphs.clear()
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(width=64, height=64, spp=4, max_bounces=4,
+                     chunk_size=1 << 13, mis_power=power)
+    chunks = cfg.width * cfg.height * cfg.spp // cfg.chunk_size
+    outs = []
+    for _ in range(3):
+        before = splat_launches()
+        outs.append(graphs.call("bdpt_rows", lambda s: bdpt_through(s, cfg),
+                                sc, cfg))
+        torch.cuda.synchronize()
+        assert splat_launches() - before == 2 * chunks
+    g = graphs.graphs()[0]
+    assert g.census["splat_prepare_kernel"] == chunks
+    assert g.census["splat_finish_kernel"] == chunks
+    with monkeypatch.context() as m:
+        m.setattr(bdpt, "t1_splats", bdpt.t1_splats_plain)
+        before = splat_launches()
+        with splat_adds() as adds:
+            L_e, sp_e, st_e = bdpt_through(sc, cfg)
+        assert splat_launches() == before
+    # the chunks' films are summed in chunk order on both routes: each
+    # pixel's sum is a sum of the same splats, k of them over all chunks
+    bound = splat_film_bound(adds, sp_e)
+    for L_g, sp_g, st_g in outs:
+        assert torch.equal(L_g, L_e)
+        assert all(torch.equal(st_g[k], st_e[k]) for k in st_e)
+        assert bool(((sp_g - sp_e).abs() <= bound).all())
+    assert float(sp_e.sum()) > 0.0
+    graphs.clear()
+    trace.reset()
+    bdpt_through(sc, cfg)
+    assert [r.counts["kernel"] for r in trace.records("bdpt.splat")] == \
+        [1] * chunks

@@ -239,6 +239,13 @@ def test_progressive_pass_matches_jax(offset, step):
      "unsigned char const*, float*)", "connect_finish_kernel"),
     ("_ZN43_GLOBAL__N__db82ccb5_10_connect_cu_ac0437e220connect_table_"
      "kernelEPxNS_10TableChunkEi", "connect_table_kernel"),
+    ("_ZN43_GLOBAL__N__db82ccb5_10_connect_cu_ac0437e220splat_prepare_"
+     "kernelEPKxiixiiPKiPKfS5_S5_S5_S5_S5_S5_S5_S5_PfS6_S6_S6_PhPi",
+     "splat_prepare_kernel"),
+    ("(anonymous namespace)::splat_finish_kernel(long long const*, long "
+     "long const*, int, int, long long, int, int const*, float const*, "
+     "float const*, float const*, float const*, unsigned char const*, "
+     "int const*, float*)", "splat_finish_kernel"),
     ("(anonymous namespace)::uniform3_kernel(long long const*, long long, "
      "unsigned int, unsigned int, long long, float*)", "uniform3_kernel"),
     ("_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEE"
@@ -249,7 +256,7 @@ def test_progressive_pass_matches_jax(offset, step):
 ])
 def test_kernel_of_names_the_wrappers_kernels(symbol, kernel):
     """A graph's kernel nodes and a trace's kernels are counted by kernel
-    from their symbols: the port's nine kernels, mangled or demangled, by
+    from their symbols: the port's eleven kernels, mangled or demangled, by
     their own names only."""
     assert graphs.kernel_of(symbol) == kernel
 
@@ -257,7 +264,7 @@ def test_kernel_of_names_the_wrappers_kernels(symbol, kernel):
 def test_kernels_map_to_the_wrappers_launch_counters():
     """Every kernel a library of cuda_build declares, mangled or
     demangled, is one graphs.kernel_of names, and no two libraries
-    declare the same kernel: the five libraries' nine kernels, all but
+    declare the same kernel: the five libraries' eleven kernels, all but
     the connection table's fill counted in cuda_build.LAUNCHES."""
     from tputracer_torch import cuda_build, rng  # noqa: F401
     from tputracer_torch.accel import (intersect_cuda, pairs_cuda,  # noqa
@@ -266,7 +273,7 @@ def test_kernels_map_to_the_wrappers_launch_counters():
 
     declared = [k for lib in cuda_build.LIBRARIES.values()
                 for k in lib.kernels()]
-    assert len(declared) == len(set(declared)) == 9
+    assert len(declared) == len(set(declared)) == 11
     assert sorted(cuda_build.LIBRARIES) == ["connect.cu", "intersect.cu",
                                             "pairs.cu", "rng.cu",
                                             "traverse.cu"]

@@ -1,14 +1,17 @@
-// BDPT's connection strategies for Hopper (sm_90a): the s >= 1, t >= 2
-// (s, t) strategies of a chunk of paths, Veach 1997 ch. 10, in two
-// kernels around the shadow rays.
+// BDPT's connection strategies for Hopper (sm_90a), Veach 1997 ch. 10:
+// the s >= 1, t >= 2 (s, t) strategies of a chunk of paths, and the t = 1
+// light-tracing splats, each in two kernels around the shadow rays.
 //
-// Replaces no TPU kernel.  The JAX package writes the connections as
-// array ops (tputracer/integrators/bdpt.py) and XLA fuses them; the
-// port's torch version (bdpt.connection_radiance_plain) runs them as
-// ~3,400 elementwise kernels a chunk at 4 bounces, each reading and
-// writing a few (n,) vectors: a BSDF eval at both ends, the geometry
-// term and the MIS ratio chains of every strategy.  Here each thread
-// takes one path through every strategy:
+// Replaces no TPU kernel.  The JAX package writes the strategies as array
+// ops (tputracer/integrators/bdpt.py) and XLA fuses them; the port's torch
+// versions run them as many elementwise kernels a chunk at 4 bounces, each
+// reading and writing a few (n,) vectors: ~3,400 for the connections
+// (bdpt.connection_radiance_plain: a BSDF eval at both ends, the geometry
+// term and the MIS ratio chains of every strategy) and ~1,400 for the
+// splats (bdpt.t1_splats_plain: the projection onto the film, the BSDF
+// eval, the importance, the t = 1 chains and an index_add_ whose masked
+// lanes all add into one dump row).  Here each thread takes one path
+// through every strategy:
 //
 //   connect_prepare_kernel  for each strategy, in connection_radiance's
 //       order (t = 2.., s = 1..min(ny, V - t)): the direction, f at both
@@ -21,26 +24,43 @@
 //       delta suppression, both ratio chains in their loop order) and the
 //       running sum of c * w, which it writes.
 //
+//   splat_prepare_kernel  for each t = 1 strategy (s = 1..min(ny, V - 1)):
+//       the camera -> y direction, its pixel on the film, f at y, the
+//       importance and the contribution c, the candidate mask and the
+//       shadow ray's direction and tmax into (S, n) buffers, and the
+//       lane's one shadow-ray origin, the camera's position;
+//   (the caller's S shadow-ray calls, unchanged)
+//   splat_finish_kernel  for each surviving splat, the MIS weight of
+//       (s, 1) (mis_weight with the camera as z) and c * w added into the
+//       chunk's (H * W, 3) film with float atomics.  Masked and occluded
+//       lanes add nothing.
+//
 // What bounds it: bytes.  A lane's arithmetic is a few hundred float ops
-// a strategy; at 4 bounces the two kernels move about 1.34 KB a lane (the
-// joined vertices' fields read once, 41 B a strategy written by the first
-// and read back by the second, connect_bytes_per_lane in chip_smoke.py), far
-// below the card's ops-per-byte line.  So the design reads each vertex
-// field a strategy needs straight from the walk's own (n,) and (n, 3)
-// tensors, through a table of their pointers (no copy into a packed
-// layout), keeps every intermediate of a strategy in registers, and in
-// the second kernel reads the chains' pdfs only on lanes whose
-// connection survived its shadow ray.  The tables are filled on the
-// device by a small kernel whose parameters carry the pointers, so a
-// CUDA graph's replay fills them again and any number of vertices fits.
+// a strategy; at 4 bounces the two connection kernels move about 1.34 KB
+// a lane (the joined vertices' fields read once, 41 B a strategy written
+// by the first and read back by the second, connect_bytes_per_lane in
+// chip_smoke.py), and the two splat kernels about 0.74 KB
+// (splat_bytes_per_lane), far below the card's ops-per-byte line.  So the
+// design reads each vertex field a strategy needs straight from the
+// walk's own (n,) and (n, 3) tensors, through a table of their pointers
+// (no copy into a packed layout), keeps every intermediate of a strategy
+// in registers, and in the second kernel reads the chains' pdfs only on
+// lanes whose connection or splat survived its shadow ray.  The tables
+// are filled on the device by a small kernel whose parameters carry the
+// pointers, so a CUDA graph's replay fills them again and any number of
+// vertices fits.  The camera is read on the device too (its (3,) tensors
+// and the terms bdpt.py derives from them with torch), so a replay sees
+// the camera copied into the graph's inputs.
 //
 // Bits: every multiply, add, divide and square root is rounded on its
 // own (-fmad=false, IEEE division and sqrt) in the torch version's order,
 // with its clamps and its NaN rules (clamp propagates NaN, amax too), and
 // a tensor divided by a Python scalar as torch's CUDA kernel does it, a
-// product with the scalar's float reciprocal.  So the sum equals the
-// torch version's on the card bit for bit; a lane's bits depend only on
-// its own inputs.
+// product with the scalar's float reciprocal.  So the connections' sum
+// equals the torch version's on the card bit for bit, and so do each
+// splat's contribution and pixel; a lane's bits depend only on its own
+// inputs.  The film's atomic sums, like index_add_'s, add in no fixed
+// order.
 
 #include <cuda_runtime.h>
 
@@ -63,6 +83,8 @@ constexpr float kInvPi = static_cast<float>(1.0 / kPiD);
 constexpr float kDivPi = 1.0f / static_cast<float>(kPiD);
 constexpr float kMinDist2 = static_cast<float>(1e-12);
 constexpr float kShadowScale = static_cast<float>(1.0 - 1e-3);
+// the camera's least cosine (bdpt._camera_pdf_sa, t1_splats' in_front)
+constexpr float kMinCos = static_cast<float>(1e-6);
 
 struct Vec {
   float x, y, z;
@@ -153,6 +175,31 @@ __device__ __forceinline__ float convert_density(float pdf_sa, Vec p_from,
   return pdf_sa * cos * inv;
 }
 
+// the (3,) vector at p
+__device__ __forceinline__ Vec load3(const float* p) {
+  return {p[0], p[1], p[2]};
+}
+
+// the camera as the t = 1 strategies see it: the camera vertex's position
+// and normal (bdpt._camera_forward) and the image plane's area at unit
+// distance (bdpt._camera_area)
+struct Camera {
+  Vec o, fwd;
+  float area;
+};
+
+__device__ __forceinline__ Camera camera_of(const float* o, const float* fwd,
+                                            const float* area) {
+  return {load3(o), load3(fwd), *area};
+}
+
+// bdpt._camera_pdf_sa: cos ** 3 is cos * cos * cos in torch's CUDA pow,
+// and 1.0 / x torch's reciprocal
+__device__ __forceinline__ float camera_pdf_sa(const Camera& cam, Vec d) {
+  const float cos = clamp_min(dot(d, cam.fwd), kMinCos);
+  return 1.0f / (cam.area * (cos * cos * cos));
+}
+
 // the unit direction from z to y and the clamped squared distance, as
 // connection_radiance and _mis_weight compute them
 __device__ __forceinline__ Vec direction(Vec zp, Vec yp, float& dist2,
@@ -235,12 +282,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// bdpt._mis_weight(s, t) of lane v.i, s >= 1, t >= 2
-__device__ float mis_weight(const Verts& v, const int* kinds, int nz, int s,
-                            int t, bool power) {
+// bdpt._mis_weight(s, t) of lane v.i, s >= 1: z is zs[t - 1] of the table
+// for t >= 2, and for t = 1 the camera `cam` (its vertex's position and
+// normal; z's own chain is empty there)
+__device__ __forceinline__ float mis_weight(const Verts& v, const int* kinds,
+                                            int nz, int s, int t, bool power,
+                                            const Camera& cam) {
   const int zi = t - 1, yi = nz + s - 1;
-  const Vec zp = v.vec(zi, kP), zn = v.vec(zi, kNg), zwo = v.vec(zi, kWo);
-  const int zm = v.mat(zi);
+  Vec zp = cam.o, zn = cam.fwd, zwo{0.0f, 0.0f, 0.0f};
+  int zm = 0;
+  if (t >= 2) {
+    zp = v.vec(zi, kP);
+    zn = v.vec(zi, kNg);
+    zwo = v.vec(zi, kWo);
+    zm = v.mat(zi);
+  }
   const Vec yp = v.vec(yi, kP), yn = v.vec(yi, kNg);
   float dist2, dist;
   const Vec d_zy = direction(zp, yp, dist2, dist);
@@ -251,18 +307,22 @@ __device__ float mis_weight(const Verts& v, const int* kinds, int nz, int s,
     ywo = v.vec(yi, kWo);
     ym = v.mat(yi);
   }
-  // pdf of z from the light side: rev_z[t - 1]
-  const float sa_y = s == 1 ? clamp_min(dot(yn, d_yz), 0.0f) * kDivPi
-                            : pdf_bsdf(kinds, ym, yn, ywo, d_yz);
-  const float rev_z1 = convert_density(sa_y, yp, zp, zn);
+  // pdf of z from the light side: rev_z[t - 1], read only for t >= 2
+  float rev_z1 = 0.0f;
+  if (t >= 2) {
+    const float sa_y = s == 1 ? clamp_min(dot(yn, d_yz), 0.0f) * kDivPi
+                              : pdf_bsdf(kinds, ym, yn, ywo, d_yz);
+    rev_z1 = convert_density(sa_y, yp, zp, zn);
+  }
   // pdf of z's predecessor through z: rev_z[t - 2], read only for t >= 3
   float rev_z2 = 0.0f;
   if (t >= 3)
     rev_z2 = convert_density(pdf_bsdf(kinds, zm, zn, d_zy, zwo), zp,
                              v.vec(zi - 1, kP), v.vec(zi - 1, kNg));
-  // pdf of y from the eye side: rev_y[s - 1]
-  const float rev_y1 =
-      convert_density(pdf_bsdf(kinds, zm, zn, zwo, d_zy), zp, yp, yn);
+  // pdf of y from the eye side: rev_y[s - 1], the camera's for t = 1
+  const float sa_z = t == 1 ? camera_pdf_sa(cam, d_zy)
+                            : pdf_bsdf(kinds, zm, zn, zwo, d_zy);
+  const float rev_y1 = convert_density(sa_z, zp, yp, yn);
   // pdf of y's predecessor through y: rev_y[s - 2]
   float rev_y2 = 0.0f;
   if (s >= 2)
@@ -305,6 +365,7 @@ __global__ void __launch_bounds__(kThreads)
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   const Verts v{tab, i};
+  const Camera none{};   // read only by t = 1
   float lx = 0.0f, ly = 0.0f, lz = 0.0f;
   long long k = 0;
   for (int t = 2; t <= nz; ++t) {
@@ -315,7 +376,7 @@ __global__ void __launch_bounds__(kThreads)
           reinterpret_cast<const unsigned char*>(__ldg(occ + k));
       float ax = 0.0f, ay = 0.0f, az = 0.0f;
       if (mask[j] && !hit[i]) {
-        const float w = mis_weight(v, kinds, nz, s, t, power != 0);
+        const float w = mis_weight(v, kinds, nz, s, t, power != 0, none);
         ax = contrib[3 * j] * w;
         ay = contrib[3 * j + 1] * w;
         az = contrib[3 * j + 2] * w;
@@ -328,6 +389,129 @@ __global__ void __launch_bounds__(kThreads)
   out[3 * i] = lx;
   out[3 * i + 1] = ly;
   out[3 * i + 2] = lz;
+}
+
+// torch.clamp(x, lo, hi) on the card: NaN stays NaN
+__device__ __forceinline__ float clamp(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+// the vertex table holds ys[0..ny) alone (nz = 0); the camera's terms are
+// (3,) tensors (o, corner, du, dv, fwd) and 0-d ones (area, du2, dv2)
+__global__ void __launch_bounds__(kThreads)
+    splat_prepare_kernel(const long long* __restrict__ tab, int ny,
+                         int n_verts, long long n, int width, int height,
+                         const int* __restrict__ kinds,
+                         const float* __restrict__ albedo,
+                         const float* __restrict__ cam_o,
+                         const float* __restrict__ corner,
+                         const float* __restrict__ du,
+                         const float* __restrict__ dv,
+                         const float* __restrict__ fwd,
+                         const float* __restrict__ area,
+                         const float* __restrict__ du2,
+                         const float* __restrict__ dv2,
+                         float* __restrict__ orig, float* __restrict__ dir,
+                         float* __restrict__ tmax,
+                         float* __restrict__ contrib,
+                         unsigned char* __restrict__ mask,
+                         int* __restrict__ pix) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const Verts v{tab, i};
+  const Camera cam = camera_of(cam_o, fwd, area);
+  // cam.corner - cam.o, the image plane's corner seen from the camera
+  const Vec c0 = sub(load3(corner), cam.o);
+  const Vec ax_u = load3(du), ax_v = load3(dv);
+  const float u2 = *du2, v2 = *dv2;
+  const float fw = static_cast<float>(width), fh = static_cast<float>(height);
+  // (width * height) / x: a Python int over a tensor, reciprocal(x) * wh
+  const float wh = static_cast<float>(static_cast<long long>(width) * height);
+  orig[3 * i] = cam.o.x;
+  orig[3 * i + 1] = cam.o.y;
+  orig[3 * i + 2] = cam.o.z;
+  const int s_end = min(ny, n_verts - 1);
+  for (int s = 1; s <= s_end; ++s) {
+    const int yi = s - 1;
+    const Vec yp = v.vec(yi, kP), yn = v.vec(yi, kNg), yb = v.vec(yi, kBeta);
+    float dist2, dist;
+    const Vec d = direction(cam.o, yp, dist2, dist);   // camera -> y
+    const float cos_c = dot(d, cam.fwd);
+    const bool in_front = cos_c > kMinCos;
+    // project onto the unit-distance image plane -> film uv
+    const float cc = clamp_min(cos_c, kMinCos);
+    const Vec rel = sub({d.x / cc, d.y / cc, d.z / cc}, c0);
+    const float uu = dot(rel, ax_u) / u2;
+    const float vv = dot(rel, ax_v) / v2;
+    // clamped to one pixel outside the film before the cast, as there
+    const long long px =
+        static_cast<long long>(floorf(clamp(uu * fw, -1.0f, fw)));
+    const long long py =
+        static_cast<long long>(floorf(clamp(vv * fh, -1.0f, fh)));
+    const bool on_film =
+        px >= 0 && px < width && py >= 0 && py < height && in_front;
+    const Vec d_yc = neg(d);
+    Vec f_y;
+    if (s == 1) {
+      // y0 is the emitter sample: its one-sided emission indicator
+      const float ind = dot(yn, d_yc) > 0.0f ? 1.0f : 0.0f;
+      f_y = {ind, ind, ind};
+    } else {
+      f_y = eval_bsdf(kinds, albedo, v.mat(yi), yn, v.vec(yi, kWo), d_yc);
+    }
+    const float cos_y = fabsf(dot(yn, d));
+    // importance W = WH / (A cos^3); camera -> y adds cos_y / r^2
+    const float imp = 1.0f / (cam.area * (cc * cc * cc)) * wh;
+    const float g = imp * cos_y / dist2;
+    const Vec c = scale(mul(yb, f_y), g);
+    // torch.amax(c, -1) > 0: false where any channel is NaN
+    const bool c_pos = !(isnan(c.x) || isnan(c.y) || isnan(c.z)) &&
+                       (c.x > 0.0f || c.y > 0.0f || c.z > 0.0f);
+    const bool m = v.flag(yi, kValid) && !v.flag(yi, kDelta) && on_film &&
+                   c_pos;
+    const long long j = static_cast<long long>(s - 1) * n + i;
+    dir[3 * j] = d.x;
+    dir[3 * j + 1] = d.y;
+    dir[3 * j + 2] = d.z;
+    tmax[j] = m ? dist * kShadowScale : 0.0f;
+    contrib[3 * j] = c.x;
+    contrib[3 * j + 1] = c.y;
+    contrib[3 * j + 2] = c.z;
+    mask[j] = m;
+    pix[j] = m ? static_cast<int>(py * width + px) : 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    splat_finish_kernel(const long long* __restrict__ tab,
+                        const long long* __restrict__ occ, int ny,
+                        int n_verts, long long n, int power,
+                        const int* __restrict__ kinds,
+                        const float* __restrict__ cam_o,
+                        const float* __restrict__ fwd,
+                        const float* __restrict__ area,
+                        const float* __restrict__ contrib,
+                        const unsigned char* __restrict__ mask,
+                        const int* __restrict__ pix,
+                        float* __restrict__ film) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const Verts v{tab, i};
+  const Camera cam = camera_of(cam_o, fwd, area);
+  const int s_end = min(ny, n_verts - 1);
+  for (int s = 1; s <= s_end; ++s) {
+    const long long j = static_cast<long long>(s - 1) * n + i;
+    const unsigned char* hit =
+        reinterpret_cast<const unsigned char*>(__ldg(occ + s - 1));
+    if (!mask[j] || hit[i]) continue;
+    const float w = mis_weight(v, kinds, 0, s, 1, power != 0, cam);
+    float* f = film + 3 * static_cast<long long>(pix[j]);
+    atomicAdd(f, contrib[3 * j] * w);
+    atomicAdd(f + 1, contrib[3 * j + 1] * w);
+    atomicAdd(f + 2, contrib[3 * j + 2] * w);
+  }
 }
 
 // copies `count` entries of the host array `src` into `dst` on the device
@@ -383,6 +567,44 @@ int tpt_connect_finish(const long long* host_occ, int n_occ,
   if (err != 0 || n <= 0) return err;
   connect_finish_kernel<<<grid_of(n), kThreads, 0, st>>>(
       dev_tab, dev_occ, nz, ny, n_verts, n, power, kinds, contrib, mask, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Fills the vertex table `dev_tab` from `host_tab` (n_tab = ny * kFields
+// pointers of ys alone), then runs the first splat kernel on n lanes into
+// the (n, 3) origins and the (S, n) and (S, n, 3) buffers.
+int tpt_splat_prepare(const long long* host_tab, int n_tab,
+                      long long* dev_tab, int ny, int n_verts, long long n,
+                      int width, int height, const int* kinds,
+                      const float* albedo, const float* cam_o,
+                      const float* corner, const float* du, const float* dv,
+                      const float* fwd, const float* area, const float* du2,
+                      const float* dv2, float* orig, float* dir, float* tmax,
+                      float* contrib, unsigned char* mask, int* pix,
+                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = fill_table(dev_tab, host_tab, n_tab, st);
+  if (err != 0 || n <= 0) return err;
+  splat_prepare_kernel<<<grid_of(n), kThreads, 0, st>>>(
+      dev_tab, ny, n_verts, n, width, height, kinds, albedo, cam_o, corner,
+      du, dv, fwd, area, du2, dv2, orig, dir, tmax, contrib, mask, pix);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Fills `dev_occ` with the S occlusion results' pointers (`host_occ`),
+// then runs the second splat kernel on n lanes, adding into `film`.
+int tpt_splat_finish(const long long* host_occ, int n_occ, long long* dev_occ,
+                     const long long* dev_tab, int ny, int n_verts,
+                     long long n, int power, const int* kinds,
+                     const float* cam_o, const float* fwd, const float* area,
+                     const float* contrib, const unsigned char* mask,
+                     const int* pix, float* film, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = fill_table(dev_occ, host_occ, n_occ, st);
+  if (err != 0 || n <= 0) return err;
+  splat_finish_kernel<<<grid_of(n), kThreads, 0, st>>>(
+      dev_tab, dev_occ, ny, n_verts, n, power, kinds, cam_o, fwd, area,
+      contrib, mask, pix, film);
   return static_cast<int>(cudaGetLastError());
 }
 

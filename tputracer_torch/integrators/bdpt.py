@@ -8,12 +8,15 @@ BASELINE config 4 (the caustics scene).  For a chunk of paths:
     forward/reverse area-measure pdfs, material, delta flag, valid;
   * every (s, t) connection is one masked batch (a BSDF eval at both
     endpoints, one batched shadow ray, a vectorized MIS ratio chain),
-    unrolled in Python loops; on the card two CUDA kernels a chunk
-    compute the same bits around the shadow-ray calls
-    (``integrators/bdpt_cuda.py``, ``csrc/connect.cu``);
+    unrolled in Python loops;
   * t=1 light tracing splats light-subpath vertices through the pinhole
     onto the film with ``index_add_`` into an (H*W + 1, 3) buffer whose
     last row takes the masked lanes.
+
+On the card (:func:`bdpt_on_card`) each of the last two is two CUDA
+kernels a chunk around the same shadow-ray calls
+(``integrators/bdpt_cuda.py``, ``csrc/connect.cu``), with the same bits
+and, for the splats, float atomics into an (H*W, 3) film.
 
 MIS follows the area-measure formulation (Veach '97 ch. 10): the weight of
 strategy (s, t) is 1 / (1 + sum_i prod ratios), delta vertices contribute
@@ -24,15 +27,17 @@ on the chunking.  Dead lanes and masked connections get tmax = 0, which
 the intersection kernels answer without testing, and nothing here
 synchronizes with the host: the ray counts stay device tensors.
 
-On the card ``index_add_`` adds in no fixed order, so the splat's last
-bits may change from run to run; the per-path radiance ``L_own`` may not.
+On the card ``index_add_`` and the splat kernel's atomics add in no fixed
+order, so the splat's last bits may change from run to run; the per-path
+radiance ``L_own`` may not.
 
 A chunk's five phases are spans (``tputracer_torch.trace.phase``):
 ``bdpt.eye_walk`` and ``bdpt.light_walk`` (count ``verts``), ``bdpt.s0``,
 ``bdpt.connect`` and ``bdpt.splat`` (count ``strategies``), each with the
-count ``lanes``, and ``bdpt.connect`` with ``kernel`` (1 on the card's
-route, 0 on the torch route); inside a CUDA graph's capture each also
-leaves event nodes that time it on the device at every replay.
+count ``lanes``, and ``bdpt.connect`` and ``bdpt.splat`` with ``kernel``
+(1 on the card's route, 0 on the torch route); inside a CUDA graph's
+capture each also leaves event nodes that time it on the device at every
+replay.
 """
 
 from __future__ import annotations
@@ -80,6 +85,14 @@ def _camera_area(cam):
     """World-space area of the image plane at unit distance (scalar)."""
     cr = g.cross(cam.du, cam.dv)
     return torch.sqrt(torch.clamp(torch.sum(cr * cr), min=1e-20))
+
+
+def _splat_camera(cam):
+    """The camera's terms of the t=1 splats: the unit forward axis, the
+    image plane's area, and the squared lengths of its axes."""
+    du2 = torch.clamp(torch.sum(cam.du * cam.du), min=1e-20)
+    dv2 = torch.clamp(torch.sum(cam.dv * cam.dv), min=1e-20)
+    return _camera_forward(cam), _camera_area(cam), du2, dv2
 
 
 def _camera_pdf_sa(cam, d):
@@ -313,30 +326,32 @@ def s0_radiance(scene, cfg, zs):
     return L_own
 
 
-def connect_on_card(scene, ys, zs):
-    """Whether :func:`connection_radiance` takes the card's kernels:
-    vertices on a CUDA device and no gradient wanted.  CPU vertices, and a
-    call with grad enabled where a vertex tensor or ``scene.mat_albedo``
-    requires grad, take the torch version (the kernels have no backward);
-    any other device raises."""
+def bdpt_on_card(scene, ys, zs):
+    """Whether :func:`connection_radiance` and :func:`t1_splats` take the
+    card's kernels: vertices on a CUDA device and no gradient wanted.  CPU
+    vertices, and a call with grad enabled where a vertex tensor,
+    ``scene.mat_albedo`` or a camera tensor requires grad, take the torch
+    versions (the kernels have no backward); any other device raises."""
     dev = zs[0]["beta"].device
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
-        raise ValueError(f"no connection route for device {dev}")
+        raise ValueError(f"no BDPT kernel route for device {dev}")
+    cam = scene.camera
     return not (torch.is_grad_enabled() and (
         scene.mat_albedo.requires_grad
+        or any(x.requires_grad for x in (cam.o, cam.corner, cam.du, cam.dv))
         or any(x.requires_grad for v in zs + ys for x in v.values())))
 
 
 def connection_radiance(scene, cfg, ys, zs, occl=None, stats_acc=None):
     """s>=1, t>=2 vertex-connection strategies: (n, 3) radiance summed in
     (t, s) order, one shadow-ray call per (s, t).  On the card's route
-    (:func:`connect_on_card`) two CUDA kernels around those calls
+    (:func:`bdpt_on_card`) two CUDA kernels around those calls
     (``bdpt_cuda``), elsewhere :func:`connection_radiance_plain`; the same
     bits either way."""
     fn = (bdpt_cuda.connection_radiance_cuda
-          if connect_on_card(scene, ys, zs) else connection_radiance_plain)
+          if bdpt_on_card(scene, ys, zs) else connection_radiance_plain)
     return fn(scene, cfg, ys, zs, occl=occl, stats_acc=stats_acc)
 
 
@@ -387,21 +402,31 @@ def connection_radiance_plain(scene, cfg, ys, zs, occl=None, stats_acc=None):
 
 def t1_splats(scene, cfg, ys, zs, occl=None, stats_acc=None):
     """t=1 light-tracing strategies: splat light-subpath vertices through
-    the pinhole onto the film.  Depends only on the light subpath (zs
-    supplies just the shared camera vertex for the MIS chain).  Returns
-    (H*W, 3) in uid pixel layout (row 0 = bottom)."""
+    the pinhole onto the film, one shadow-ray call per strategy.  Returns
+    (H*W, 3) in uid pixel layout (row 0 = bottom).  On the card's route
+    (:func:`bdpt_on_card`) two CUDA kernels around those calls
+    (``bdpt_cuda``), elsewhere :func:`t1_splats_plain`; each splat's
+    contribution and pixel the same bits either way."""
+    fn = (bdpt_cuda.t1_splats_cuda
+          if bdpt_on_card(scene, ys, zs) else t1_splats_plain)
+    return fn(scene, cfg, ys, zs, occl=occl, stats_acc=stats_acc)
+
+
+def t1_splats_plain(scene, cfg, ys, zs, occl=None, stats_acc=None):
+    """t=1 light-tracing strategies: one masked batch, one shadow-ray batch
+    and one ``index_add_`` per strategy.  Depends only on the light
+    subpath (zs supplies just the shared camera vertex for the MIS
+    chain).  The CPU and gradient route, and the oracle of the card's
+    kernels."""
     cam = scene.camera
     occl = occluded if occl is None else occl
-    w_fwd = _camera_forward(cam)
     n = ys[0]["pdf_fwd"].shape[0]
     V = cfg.max_bounces + 2
     n_pix = cfg.width * cfg.height
     # the last row takes the masked lanes
     splat = torch.zeros((n_pix + 1, 3), dtype=torch.float32,
                         device=ys[0]["p"].device)
-    A = _camera_area(cam)
-    du2 = torch.clamp(torch.sum(cam.du * cam.du), min=1e-20)
-    dv2 = torch.clamp(torch.sum(cam.dv * cam.dv), min=1e-20)
+    w_fwd, A, du2, dv2 = _splat_camera(cam)
     for s in range(1, min(len(ys), V - 1) + 1):
         y = ys[s - 1]
         d_raw = y["p"] - cam.o[None, :]
@@ -475,14 +500,17 @@ def trace_bdpt(scene, uid, cfg, intersect_fn=None, occluded_fn=None):
                             stats_acc=acc)
         rec.add(verts=len(ys))
     V = cfg.max_bounces + 2
+    on_card = int(bdpt_on_card(scene, ys, zs))
     with phase("bdpt.s0", lanes=n):
         L_s0 = s0_radiance(scene, cfg, zs)
     with phase("bdpt.connect", lanes=n,
                strategies=len(bdpt_cuda.strategies(len(zs), len(ys), V)),
-               kernel=int(connect_on_card(scene, ys, zs))):
+               kernel=on_card):
         L_own = L_s0 + connection_radiance(
             scene, cfg, ys, zs, occl=occluded_fn, stats_acc=acc)
-    with phase("bdpt.splat", lanes=n, strategies=min(len(ys), V - 1)):
+    with phase("bdpt.splat", lanes=n,
+               strategies=len(bdpt_cuda.splat_strategies(len(ys), V)),
+               kernel=on_card):
         splat = t1_splats(scene, cfg, ys, zs, occl=occluded_fn,
                           stats_acc=acc)
     zero = torch.zeros((), dtype=torch.float32, device=uid.device)
