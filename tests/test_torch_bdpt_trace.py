@@ -10,7 +10,7 @@ the capture; a replay's record sums each phase's pairs.  On the card
 (``cuda``): a graphed replay's ``graphs.launch`` record carries the five
 phases' device ms, whose sum is at most the replay's and at least 80% of
 it; the BDPT graph gains two event nodes a phase and chunk and no kernel;
-a PT graph's census keeps its two event nodes.
+a PT graph holds no BDPT phase, only its bounces'.
 """
 
 import types
@@ -139,7 +139,8 @@ def test_a_replay_sums_each_phases_pairs():
     with trace.span("graphs.launch") as rec:
         pass
     g = types.SimpleNamespace(
-        timing=rec, phases=phases, ready=_Timed(0.5), begin=_Timed(1.0),
+        timing=rec, phases=phases, host=torch.zeros(0), counts=[],
+        ready=_Timed(0.5), begin=_Timed(1.0),
         end=types.SimpleNamespace(query=lambda: True, t_ms=5.25))
     graphs.Graph.settle(g)
     assert rec.device == {"wait_ms": 0.5, "replay_ms": 4.25, "a": 3.5,
@@ -183,6 +184,10 @@ def test_a_graphed_replay_times_the_phases_on_the_device():
 
 @pytest.mark.cuda
 def test_a_pt_graph_holds_no_phase_nodes():
+    """No BDPT phase node: a PT graph's phases are its bounces, each
+    opening on the event node that closed the bounce before (B + 2 event
+    nodes a chunk), and its record holds their device ms and its counts
+    beside the replay's times."""
     need_card()
     graphs.clear()
     sc = cornell_box("boxes", device="cuda")
@@ -192,7 +197,12 @@ def test_a_pt_graph_holds_no_phase_nodes():
         api.render(sc, cfg)
     torch.cuda.synchronize()
     (g,) = graphs.graphs()
-    assert g.phases == [] and g.census["event_nodes"] == 2
+    bounces = [f"pt.bounce.{b}" for b in range(cfg.max_bounces + 1)]
+    chunks = 2
+    assert [name for name, _, _ in g.phases] == bounces * chunks
+    assert not set(PHASES) & {name for name, _, _ in g.phases}
+    assert g.census["event_nodes"] == 2 + (len(bounces) + 1) * chunks
     rec = trace.records("graphs.launch")[-1]
-    assert set(rec.device) == {"wait_ms", "replay_ms"}
+    assert set(rec.device) == {"wait_ms", "replay_ms", "pt.live",
+                               "pt.lanes", *bounces}
     graphs.clear()

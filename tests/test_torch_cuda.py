@@ -950,9 +950,10 @@ def test_graph_replays_are_timed_on_the_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["boxes", "mesh"])
 def test_graph_event_nodes_leave_the_kernel_census(case):
-    """The graph's two event-record nodes are no kernels: its kernel
-    nodes are what the eager render launches (the launch counters) and
-    what a traced replay runs, kernel for kernel."""
+    """The graph's event-record nodes (its first and last, and PT's
+    bounce phases: one a bounce and one more a chunk) are no kernels: its kernel nodes are
+    what the eager render launches (the launch counters) and what a
+    traced replay runs, kernel for kernel."""
     from chip_smoke import by_counter
     from tputracer_torch import graphs
     from tputracer_torch.api import render
@@ -965,7 +966,8 @@ def test_graph_event_nodes_leave_the_kernel_census(case):
     render(sc, cfg)
     render(sc, cfg)
     census = graphs.graphs()[0].census
-    assert census["event_nodes"] == 2
+    chunks = -(-cfg.width * cfg.height * cfg.spp // cfg.chunk_size)
+    assert census["event_nodes"] == 2 + (cfg.max_bounces + 2) * chunks
     assert by_counter(census) == want
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -984,6 +986,47 @@ def test_graph_event_nodes_leave_the_kernel_census(case):
         if counts[-1] == census["kernel_nodes"]:
             break
     assert census["kernel_nodes"] in counts, counts
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_graph_pt_bounces_are_timed_and_their_live_lanes_counted():
+    """A graphed render of the spheres scene (BASELINE config 2's) at 64
+    x 64, 16 spp in 4 chunks: each replay's record holds every bounce's
+    device ms, each above 0 and together no more than the replay's, and
+    the frame's closest-hit rays per bounce (``pt.live``), the eager
+    render's ``rays_closest`` exactly, with its path count; the image is
+    the eager one bit for bit."""
+    from tputracer_torch import graphs, trace
+    from tputracer_torch.api import render
+
+    need_card()
+    graphs.clear()
+    trace.reset()
+    sc = cornell_box("spheres", device="cuda")
+    cfg = RenderConfig(width=64, height=64, spp=16, max_bounces=6,
+                       rr_start=3, chunk_size=1 << 14)
+    img_e, st_e = render_pt(sc, cfg)
+    live = st_e["rays_closest"].tolist()
+    for _ in range(5):   # eager, the capture and its replay, replays
+        img, st = render(sc, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(img, img_e)
+        assert all(torch.equal(st[k], st_e[k]) for k in st_e)
+    recs = trace.records("graphs.launch")
+    assert len(recs) == 4
+    names = [f"pt.bounce.{b}" for b in range(cfg.max_bounces + 1)]
+    for rec in recs:
+        assert rec.device is not None and "untimed" not in rec.counts
+        parts = [rec.device[name] for name in names]
+        assert all(p > 0 for p in parts), rec.device
+        assert sum(parts) <= rec.device["replay_ms"], rec.device
+        assert rec.device["pt.live"] == live
+        assert rec.device["pt.lanes"] == 64 * 64 * 16
+    assert live[0] == 64 * 64 * 16 and live[-1] < live[cfg.rr_start]
+    (g,) = graphs.graphs()
+    assert len(g.phases) == len(names) * 4
+    assert g.census["event_nodes"] == 2 + (len(names) + 1) * 4
     graphs.clear()
 
 

@@ -250,7 +250,8 @@ def _replayed(ready, begin, end):
     """A stand-in Graph after one replay, its events at those times."""
     with span("graphs.launch") as rec:
         pass
-    return types.SimpleNamespace(timing=rec, phases=[], ready=_Event(ready),
+    return types.SimpleNamespace(timing=rec, phases=[], host=torch.zeros(0),
+                                 counts=[], ready=_Event(ready),
                                  begin=_Event(begin),
                                  end=_Event(end, done=end is not None))
 

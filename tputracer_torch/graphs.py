@@ -60,8 +60,9 @@ call, or with the count ``ungraphed`` a call that is never graphed);
 ``graphs.instantiate``; and of a replay ``graphs.copy_in`` (counts
 ``tensors`` and ``bytes``), ``graphs.launch`` (its device times, see
 :class:`Graph`, with those of the phases ``fn`` ran while it was
-captured) and ``graphs.clone``.  The cache lives as long as the
-process, like jit's; :func:`clear` empties it and frees the graphs' pool.
+captured and the values it counted) and ``graphs.clone``.  The cache
+lives as long as the process, like jit's; :func:`clear` empties it and
+frees the graphs' pool.
 """
 
 from __future__ import annotations
@@ -75,12 +76,15 @@ import torch
 from tputracer_torch import cuda_build
 from tputracer_torch.accel import _use_pairs
 from tputracer_torch.scene.types import CAMERA_FIELDS, TENSOR_FIELDS, Camera
-from tputracer_torch.trace import SETTLERS, capturing, phase_ms, span
+from tputracer_torch.trace import (SETTLERS, capturing, count_values,
+                                   counting, phase_ms, span)
 
 # tensors copied into graphs' static inputs since the last reset
 COPIES = 0
 # graphs captured since the last reset
 CAPTURES = 0
+# float32 slots of a graph's pinned buffer for its counted values
+COUNT_SLOTS = 1024
 
 # key -> its Graph, or None after the key's first (eager) call
 _CACHE: dict = {}
@@ -221,9 +225,12 @@ class Graph:
     when records are read, or at :func:`clear`.  Each
     ``tputracer_torch.trace.phase`` that ``fn`` ran during the capture
     left a pair of event nodes too (``phases``), and the record also gets
-    each phase's device ms under its name, summed over its pairs.
-    Nothing waits on them; a replay whose events had not completed by its
-    graph's next replay gets the count ``untimed``."""
+    each phase's device ms under its name, summed over its pairs, and
+    each ``tputracer_torch.trace.device_count`` of the capture under its
+    name (``counts``: copied by the graph into the pinned buffer
+    ``host``, read on the host once ``end`` has completed, summed by
+    name).  Nothing waits on them; a replay whose events had not
+    completed by its graph's next replay gets the count ``untimed``."""
 
     def __init__(self, name, fn, scene, inputs):
         global CAPTURES
@@ -245,7 +252,10 @@ class Graph:
                     torch.cuda.Event(enable_timing=True, external=True)
                     for _ in range(2))
                 self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-                with capturing() as self.phases:
+                self.host = torch.empty(COUNT_SLOTS, dtype=torch.float32,
+                                        pin_memory=True)
+                with capturing() as self.phases, \
+                        counting(self.host) as self.counts:
                     self.out = _capture(self.graph, stream, _pool(dev), name,
                                         fn, self.scene, self.inputs,
                                         self.begin, self.end)
@@ -306,7 +316,8 @@ class Graph:
         if self.end.query():
             rec.device = {"wait_ms": self.ready.elapsed_time(self.begin),
                           "replay_ms": self.begin.elapsed_time(self.end),
-                          **phase_ms(self.phases)}
+                          **phase_ms(self.phases),
+                          **count_values(self.host.numpy(), self.counts)}
         elif final:
             rec.add(untimed=1)
         else:

@@ -14,6 +14,14 @@ lane masks.  Per bounce b:
 The RNG is counter-based (tputracer_torch.rng) and keyed by the global
 path uid, so the streams are those of the JAX package, whatever the
 chunking.  Statistics stay on the device; nothing here synchronizes.
+
+Each bounce b of a chunk is the phase ``pt.bounce.<b>``
+(``tputracer_torch.trace.phase``): a span, and inside a CUDA graph's
+capture a stretch that each replay times on the device, each bounce
+opening on the event that closed the one before.  A chunked call
+hands the capture its closest-hit rays per bounce, summed over the
+chunks, as the count ``pt.live`` and its path count as ``pt.lanes``
+(``trace.device_count``), which each replay's record then reads.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from tputracer_torch.accel import intersect, occluded
 from tputracer_torch.bsdf import (emitted, eval_bsdf, nee_nonspecular,
                                   pdf_bsdf, sample_bsdf)
 from tputracer_torch.lights import pdf_light_area, sample_light
-from tputracer_torch.trace import span
+from tputracer_torch.trace import device_count, phase, span
 
 _BIG = 3.0e38
 
@@ -214,10 +222,11 @@ def trace_radiance(scene, uid, cfg, decision_scene=None,
     alive_counts = []
     issued_counts = []                    # closest-hit rays actually traced
     shadow_counts = []                    # shadow rays actually traced
+    bounce = None                         # the last bounce's phase
     for b in range(cfg.max_bounces + 1):
         step = functools.partial(_bounce_step, b=b, cfg=cfg, isect=isect,
                                  occl=occl)
-        with span("pt.bounce"):
+        with phase(f"pt.bounce.{b}", after=bounce, lanes=n) as bounce:
             if remat:
                 # scene, decision_scene and uid are explicit arguments, as in
                 # the reference, so the recomputation reads them and not
@@ -268,6 +277,8 @@ def trace_chunked(scene, uids, cfg, decision_scene=None,
                                occluded_fn=occluded_fn)
         Ls.append(L)
         stats = st if stats is None else {k: stats[k] + st[k] for k in st}
+    device_count("pt.live", stats["rays_closest"])
+    device_count("pt.lanes", n)
     return torch.cat(Ls, dim=0), stats
 
 

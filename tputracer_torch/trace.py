@@ -19,10 +19,18 @@ a span costs a flag check, two clock reads and an append.
 
 A :func:`phase` is a span that can also be timed on the device inside a
 CUDA graph: while a graph is captured (:func:`capturing`), each phase
-brackets its work with two external event nodes, and each replay of the
-graph can then read its device milliseconds (:func:`phase_ms`).  Outside
+brackets its work with two external event nodes (one, where it opens on
+the closing node of the phase before it), and each replay of the graph
+can then read its device milliseconds (:func:`phase_ms`).  Outside
 a capture a phase is a plain span, and a graph whose capture ran no
 phase holds no such nodes.
+
+A :func:`device_count` hands a capture a number the device computes (a
+count of live lanes, say) without a sync: inside :func:`counting` it
+copies the tensor's values into the capture's pinned host buffer, one
+device-to-host copy node in the graph, and each replay's record can read
+them once the replay is done (:func:`count_values`).  Outside a capture
+it does nothing.
 
 There is no exporter: ``cli.py --profile`` writes the profiler's trace,
 which holds the spans, and a caller in the process reads the records
@@ -48,7 +56,8 @@ PREFIX = "tputracer."
 _BINS = ({}, {})              # untraced, traced: name -> deque of Records
 _IDS = itertools.count(1)
 _LOCAL = threading.local()    # .top: the thread's innermost open span;
-                              # .phases: the capture's phases, or None
+                              # .phases: the capture's phases, or None;
+                              # .counting: (host buffer, counted), or None
 _clock = time.perf_counter_ns
 # callables that fill in records whose device times came in late
 SETTLERS: list = []
@@ -126,30 +135,39 @@ span = Record
 class Phase(Record):
     """A span that, inside a graph's capture (:func:`capturing`), records
     an external event on the capturing stream as it opens and another as
-    it closes, and hands the pair to the capture."""
+    it closes, and hands the pair to the capture.  Opened with ``after``,
+    the record of a phase that closed before it in the same capture, it
+    opens on that phase's closing event and records none of its own: the
+    two share an event node, and work enqueued between them counts as
+    this phase's."""
 
-    __slots__ = ("_end",)
+    __slots__ = ("_after", "_end")
+
+    def __init__(self, name, after=None, **counts):
+        super().__init__(name, **counts)
+        self._after = after
 
     def __enter__(self):
         phases = getattr(_LOCAL, "phases", None)
         self._end = None
         if phases is not None:
-            begin, self._end = (
-                torch.cuda.Event(enable_timing=True, external=True)
-                for _ in range(2))
-            begin.record()
+            begin = getattr(self._after, "_end", None)
+            if begin is None:
+                begin = torch.cuda.Event(enable_timing=True, external=True)
+                begin.record()
+            self._end = torch.cuda.Event(enable_timing=True, external=True)
             phases.append((self.name, begin, self._end))
+        self._after = None
         return super().__enter__()
 
     def __exit__(self, kind, value, tb):
         if self._end is not None:
             self._end.record()
-            self._end = None
         return super().__exit__(kind, value, tb)
 
 
-# ``with phase(name, **counts) as rec``: a span whose work a CUDA graph
-# captured around it can time on the device
+# ``with phase(name, after=None, **counts) as rec``: a span whose work a
+# CUDA graph captured around it can time on the device
 phase = Phase
 
 
@@ -164,6 +182,56 @@ def capturing():
         yield phases
     finally:
         _LOCAL.phases = outer
+
+
+@contextlib.contextmanager
+def counting(host):
+    """While a CUDA graph is captured in this block: yields the list that
+    collects each :func:`device_count` run in it, as (name, host number or
+    slice of ``host``), ``host`` being a pinned float32 buffer."""
+    outer = getattr(_LOCAL, "counting", None)
+    counted = []
+    _LOCAL.counting = (host, counted)
+    try:
+        yield counted
+    finally:
+        _LOCAL.counting = outer
+
+
+def device_count(name, value):
+    """Inside :func:`counting`: a device tensor's values, copied as
+    float32 into the next slots of the capture's pinned buffer (a copy
+    node in the graph, so each replay refills them), or a host number,
+    counted under ``name``.  Outside it: nothing, and no sync."""
+    state = getattr(_LOCAL, "counting", None)
+    if state is None:
+        return
+    host, counted = state
+    if isinstance(value, torch.Tensor):
+        flat = value.detach().reshape(-1).to(torch.float32)
+        start = sum(v.stop - v.start for _, v in counted
+                    if isinstance(v, slice))
+        if start + flat.numel() > host.numel():
+            raise RuntimeError(f"device_count({name!r}): the capture's "
+                               f"{host.numel()} counted values are taken")
+        value = slice(start, start + flat.numel())
+        host[value].copy_(flat, non_blocking=True)
+    counted.append((name, value))
+
+
+def count_values(host, counted):
+    """{name: number, or list of numbers} of a replay's :func:`counting`
+    list, summed over each name's entries (lists element by element);
+    the replay must have completed."""
+    out = {}
+    for name, v in counted:
+        x = host[v].tolist() if isinstance(v, slice) else v
+        if name in out:
+            y = out[name]
+            x = [a + b for a, b in zip(y, x, strict=True)] \
+                if isinstance(x, list) else y + x
+        out[name] = x
+    return out
 
 
 def phase_ms(phases):
