@@ -6,7 +6,7 @@
 Run from the root of a checkout.  Phases, each printing one line:
 
   1. device: needs torch.cuda; prints the card's name and power limit.
-  2. build: compiles the five sources of tputracer_torch/csrc/ (one nvcc
+  2. build: compiles the six sources of tputracer_torch/csrc/ (one nvcc
      per source, started together) and builds the config-3 mesh scene on
      the card, saying which BVH builder (native or NumPy) ran.
   3. kernel: the intersection kernel against its plain PyTorch version,
@@ -22,7 +22,9 @@ Run from the root of a checkout.  Phases, each printing one line:
   4. render: the config-1 path, tputracer_torch.api.render of Cornell boxes
      at 512x512, 16 spp, 4 bounces; it must launch the intersection kernel
      36 times (4 chunks x (5 closest + 4 shadow)) and give a sane image.
-     Timed with the kernel and with the plain version in its place.
+     Timed with the kernel, and with the plain version's hooks, which send
+     the render down the torch route (plain intersector and torch
+     shading): a whole route against the kernels' route.
   5. parity: a 64x64, 4 spp render with the kernel against the same render
      with the plain version on the card, and against the CPU render.
   6. traverse: the traversal kernel against its plain version (the
@@ -39,10 +41,12 @@ Run from the root of a checkout.  Phases, each printing one line:
   7. mesh render: the config-3 path, api.render of mesh_scene(subdiv=6) at
      256x256, 4 spp, 8 bounces; it must launch the traversal kernel 68
      times (4 chunks x (9 closest + 8 shadow)), the intersection kernel
-     never, and give a sane image.  Timed with the kernel, and once with
-     the plain walk in its place.
+     never, and give a sane image.  Timed with the kernel, and once
+     through the plain walk's hooks: the torch route, the plain walk and
+     the torch shading.
   8. mesh parity: mesh_scene(subdiv=4) at 32x32, 4 spp, 8 bounces with the
-     kernel, with the plain walk on the card, and on the CPU.
+     kernels, through the plain walk's hooks on the card (the torch route;
+     bit for bit), and on the CPU.
   9. pairs: the expand and pair-test kernels (the pair route) against their
      plain versions, bit for bit, on the 102,410-triangle mesh at 2^16
      camera rays and at 2^16 and 2^18 random rays, closest and any hit; a
@@ -134,8 +138,8 @@ Run from the root of a checkout.  Phases, each printing one line:
      chunks of 2^20; it must launch the intersection kernel 52 times (4
      chunks x (7 closest + 6 shadow)) and the other kernels never, give a
      finite image with a mean in [0.15, 0.30], and the image and ray
-     counts of the plain version's hooks bit for bit.  Timed as phase 4
-     (the plain render once).
+     counts of the plain version's hooks (the torch route) bit for bit.
+     Timed as phase 4 (the plain route's render once).
  17. graphs: the compiled entry points (tputracer_torch.graphs). Configs 1,
      2, 3 (B2, and the pair route with TPUTRACER_PAIRS=1), 4, and the
      progressive renders of configs 1 and 4 in passes of 4 spp, each through
@@ -171,7 +175,8 @@ Run from the root of a checkout.  Phases, each printing one line:
      CUDA graph, graph_ms, which leaves out the host's work) beside its
      bound (20 bytes a lane) and the plain version.  Then configs 1 and 3
      through api.render (eager, capture, replay): each call must launch the
-     kernel once a draw, 40 and 88 times, the eager and capturing calls' draws
+     kernel once a draw, the camera's one a chunk (the PT kernels draw the
+     rest themselves), 4 times each, the eager and capturing calls' draws
      must all take the kernel (their rng.uniform3 spans), and the graph
      must hold those launches; a second graph of the same render with
      uniform3 on the torch route must hold none and give the same image
@@ -197,6 +202,20 @@ Run from the root of a checkout.  Phases, each printing one line:
      likewise, and the whole splat phase (its 5 shadow-ray calls
      included) inside a CUDA graph; then the frame again: 8 splat
      launches a call, 4 of each kernel and 16 table fills in its graph.
+ 20. pt: PT's bounce kernels (csrc/pt.cu, pt_cuda.bounce_cuda) against
+     _bounce_step_plain bounce by bounce from the same carry on chunks of
+     2^20 paths of config 1 and config 2 (with MIS too) and a 2^16-path
+     chunk of config 3's mesh through B2, the card's intersectors on both
+     sides (pt_bounce_bits: L, alive, the ray counts and the next tmax
+     bit for bit on every lane, the rest of the carry on every lane still
+     alive; the largest difference seen is the kernels line's
+     max_abs_err); the two kernels of a config-1 bounce timed inside a
+     CUDA graph, their closest hit given and every shadow ray clear,
+     beside the bytes that bounce's lanes need (pt_bytes of its own ray
+     counts) and the torch version's shading of that bounce; then config
+     1's frame through
+     api.render (eager, capture, replay): 36 launches a call, the graph
+     holding 20 prepare, 16 finish and 4 sampler kernels.
 
 Phases 4, 7, 10, 12, 13 and 16 go through the same entry points, whose
 first call of a key runs eagerly, so their counted calls are eager ones;
@@ -387,15 +406,15 @@ def phase_build():
     from tputracer_torch.accel import intersect_cuda as ic
     from tputracer_torch.accel import pairs_cuda as pc
     from tputracer_torch.accel import traverse_cuda as tc
-    from tputracer_torch.integrators import bdpt_cuda
+    from tputracer_torch.integrators import bdpt_cuda, pt_cuda
     from tputracer_torch.scene import mesh_scene
 
     sources = ("intersect.cu", "traverse.cu", "pairs.cu", "rng.cu",
-               "connect.cu")
+               "connect.cu", "pt.cu")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:     # one nvcc per source, together
+    with ThreadPoolExecutor(6) as pool:     # one nvcc per source, together
         for job in [pool.submit(m.LIB.load)
-                    for m in (ic, tc, pc, rng, bdpt_cuda)]:
+                    for m in (ic, tc, pc, rng, bdpt_cuda, pt_cuda)]:
             job.result()
     nvcc_s = time.perf_counter() - t0
     ptxas = {src: [ln.strip() for ln in
@@ -706,6 +725,9 @@ def phase_render():
         render_pt(sc, cfg)
 
     def plain_run():
+        # injected hooks send the render down the torch route: the plain
+        # intersector and the torch shading, a whole route against the
+        # kernels' (B1 and csrc/pt.cu)
         render_pt(sc, cfg, intersect_fn=intersect_plain,
                   occluded_fn=occluded_plain)
 
@@ -716,13 +738,14 @@ def phase_render():
         kernel_s.append(cuda_ms(kernel_run, 0, 1) / 1e3)
         plain_s.append(cuda_ms(plain_run, 0, 1) / 1e3)
     render_s = statistics.median(kernel_s)
-    plain_render_s = statistics.median(plain_s)
+    plain_route_render_s = statistics.median(plain_s)
     flat = n_paths * (2 * cfg.max_bounces + 1)
     emit("render", config="boxes 512x512 16spp 4 bounces", launches=launches,
          mean=mean, render_s=render_s, render_s_all=kernel_s,
          flat_rays_per_s=flat / render_s,
          issued_rays=issued, issued_rays_per_s=issued / render_s,
-         plain_render_s=plain_render_s, plain_render_s_all=plain_s,
+         plain_route_render_s=plain_route_render_s,
+         plain_route_render_s_all=plain_s,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches, img.cpu().numpy()
 
@@ -1101,7 +1124,8 @@ def phase_mesh_render(mesh):
         kernel_s.append(cuda_ms(lambda: render_pt(sc, cfg), 0, 1) / 1e3)
     render_s = statistics.median(kernel_s)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # the plain walk in the kernel's place: one run, not a median
+    # the torch route, which injected hooks take: the plain walk in B2's
+    # place and the torch shading in csrc/pt.cu's; one run, not a median
     plain_s = cuda_ms(lambda: render_pt(
         sc, cfg, intersect_fn=intersect_clustered,
         occluded_fn=occluded_clustered), 0, 1) / 1e3
@@ -1111,7 +1135,7 @@ def phase_mesh_render(mesh):
          render_s=render_s, render_s_all=kernel_s,
          flat_rays_per_s=flat / render_s, issued_rays=issued,
          issued_rays_per_s=issued / render_s,
-         plain_render_s_once=plain_s, peak_mem_gb=peak_gb)
+         plain_route_render_s_once=plain_s, peak_mem_gb=peak_gb)
     return launches, img.cpu().numpy(), {k: v.cpu().numpy()
                                          for k, v in stats.items()}
 
@@ -1135,6 +1159,9 @@ def phase_mesh_parity():
                   golden_compare("cpu render", img_k, img_c)],
          bitwise_equal_plain=bool((img_k == img_p).all()),
          mean=float(img_k.mean()))
+    check(bool((img_k == img_p).all()),
+          "32x32 mesh render: the kernels' image is not the plain route's, "
+          "bit for bit")
 
 
 def skew_bound(sc, o, d, prim, t):
@@ -2097,9 +2124,10 @@ def phase_spheres():
     2^20 paths, counted: (B + 1) closest-hit and B shadow calls a chunk,
     all through the intersection kernel's sphere branch; a finite image
     with its mean in [0.15, 0.30] (phase 4's range), and the image and ray
-    counts of the plain version's hooks bit for bit.
+    counts of the plain version's hooks bit for bit (hooks take the torch
+    route: the plain intersector and the torch shading).
     render_s as phase 4 times it: CUDA events around render_pt, the median
-    of 3 after the counted render; the plain render once."""
+    of 3 after the counted render; the plain route's render once."""
     from tputracer_torch.accel import intersect_plain, occluded_plain
     from tputracer_torch.api import render
     from tputracer_torch.config import RenderConfig
@@ -2128,7 +2156,7 @@ def phase_spheres():
     img_p, stats_p = render_pt(scene, cfg, intersect_fn=intersect_plain,
                                occluded_fn=occluded_plain)
     torch.cuda.synchronize()
-    plain_render_s = time.perf_counter() - t0
+    plain_route_render_s = time.perf_counter() - t0
     check(torch.equal(img, img_p), "config 2: the kernel's image is not the "
                                    "plain version's, bit for bit")
     check(all(torch.equal(stats[k], stats_p[k]) for k in stats),
@@ -2143,7 +2171,7 @@ def phase_spheres():
          render_s_all=kernel_s,
          flat_rays_per_s=n_paths * (2 * cfg.max_bounces + 1) / render_s,
          issued_rays=issued, issued_rays_per_s=issued / render_s,
-         plain_render_s=plain_render_s, peak_mem_gb=peak / 1e9)
+         plain_route_render_s=plain_route_render_s, peak_mem_gb=peak / 1e9)
     return launches["fused_intersect"]
 
 
@@ -2662,7 +2690,9 @@ def phase_dist(c1_img, c3_img, c3_stats, c4_img):
         out["capacity_scene"] = {
             "n_tris": cap.n_tris, "n_clusters": cap.n_clusters,
             "max_clusters": max_clusters, "refused": refused,
-            "host_build_s": cap_build_s, "plain_walk_render_s": plain_s,
+            "host_build_s": cap_build_s,
+            # the plain walk's hooks take the torch shading too
+            "plain_route_render_s": plain_s,
             "mean": float(cap_img.mean())}
     check(np.isfinite(out["capacity_scene"]["mean"]),
           "capacity render is not finite")
@@ -3138,11 +3168,11 @@ def phase_sampler(mesh):
     for t in times:
         emit("sampler", **t)
     renders = [
+        # the camera's draw a chunk; the PT kernels draw the rest
         sampler_render("config 1", cornell_box("boxes", device="cuda"),
                        RenderConfig(width=512, height=512, spp=16,
-                                    max_bounces=4), 4 * (1 + 8 + 1)),
-        sampler_render("config 3", mesh, RenderConfig(**MESH_CFG),
-                       4 * (1 + 16 + 5)),
+                                    max_bounces=4), 4),
+        sampler_render("config 3", mesh, RenderConfig(**MESH_CFG), 4),
     ]
     for r in renders:
         emit("sampler", **r)
@@ -3487,6 +3517,243 @@ def phase_connect():
     return times, res, phase_splat(sc, n, frame)
 
 
+# ---- phase 20: PT's bounce kernels (csrc/pt.cu) -----------------------------
+
+# the bytes each class of lane needs in the two PT kernels of a full
+# bounce, every array each kernel reads or writes counted once a kernel
+# (the scene's tables stay in cache and are not counted):
+#   dead, a lane dead at the bounce's start: prepare reads alive 1 and
+#     writes stmax 4; finish reads alive 1
+#   miss, alive and hitting nothing: prepare reads alive 1, t 4 and writes
+#     stmax 4, flags 1; finish reads alive 1, flags 1 and writes alive 1,
+#     tmax 4
+#   hit, alive and hitting something: prepare reads alive 1, t 4, prim 4,
+#     o 12, d 12, thr 12, prev_delta 1, uid 8, L 12 and writes L 12,
+#     stmax 4, flags 1; finish reads alive 1, flags 1, o 12, d 12, t 4,
+#     prim 4, uid 8, thr 12 and writes o 12, d 12, thr 12, prev_delta 1,
+#     prev_pdf 4, alive 1, tmax 4
+#   shadow, a hit's shadow ray, more: prepare writes so 12, sd 12,
+#     contrib 12; finish reads occ 1 and, the ray clear, contrib 12, L 12
+#     and writes L 12
+# and PT_MIS_BYTES more a hit where MIS weighs the emission (mis on, past
+# bounce 0): prepare reads prev_pdf 4
+PT_LANE_BYTES = dict(dead=5 + 1, miss=10 + 7, hit=83 + 100, shadow=36 + 37)
+PT_MIS_BYTES = 4
+
+
+def pt_bytes(n, issued, active, shadow, mis_weighs):
+    """The bytes the two PT kernels of a full bounce need on a chunk of n
+    lanes: issued of them alive at its start, active of those hitting
+    something, shadow of those tracing a clear shadow ray
+    (PT_LANE_BYTES)."""
+    per = PT_LANE_BYTES
+    hit = per["hit"] + (PT_MIS_BYTES if mis_weighs else 0)
+    return ((n - issued) * per["dead"] + (issued - active) * per["miss"]
+            + active * hit + shadow * per["shadow"])
+
+
+def pt_launches():
+    """cuda_build's launch counts of the two PT kernels, summed."""
+    from tputracer_torch.cuda_build import LAUNCHES
+
+    return LAUNCHES["pt_prepare_kernel"] + LAUNCHES["pt_finish_kernel"]
+
+
+def pt_start(sc, cfg, n, offset=0):
+    """(uid, carry) of a chunk of n paths from uid ``offset`` on the card,
+    as trace_radiance starts it, the camera's origins contiguous."""
+    from tputracer_torch.integrators.pt import camera_rays
+
+    uid = torch.arange(offset, offset + n, dtype=torch.int64, device="cuda")
+    o, d = camera_rays(sc, uid, cfg)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    ones = torch.ones((n,), dtype=torch.bool, device="cuda")
+    return uid, (o.contiguous(), d, torch.zeros((n, 3), **f32),
+                 torch.ones((n, 3), **f32), ones, ones.clone(),
+                 torch.zeros((n,), **f32))
+
+
+def ulps(a, b):
+    """The largest distance in units in the last place between two float32
+    tensors of one sign pattern (0 where they are equal)."""
+    if a.numel() == 0:
+        return 0
+    return int((a.view(torch.int32).long()
+                - b.view(torch.int32).long()).abs().max())
+
+
+def pt_bounce_bits(sc, cfg, n, offset=0):
+    """Each bounce of a chunk of n paths through the kernels
+    (pt_cuda.bounce_cuda) and through _bounce_step_plain from the same
+    carry, both with the card's intersectors (accel.intersect, accel.
+    occluded): L, alive, the ray counts and the next closest-hit tmax bit
+    for bit on every lane, and o, d, thr, prev_delta and prev_pdf on
+    every lane still alive (a dead lane's are never read again; the torch
+    version overwrites them, the kernels leave them).  The plain carry goes
+    on to the next bounce.  Returns the live lanes after each bounce and
+    the largest |kernels - plain| over every float32 value compared (the
+    counts as float32); raises on any differing bit, with that
+    difference."""
+    from tputracer_torch.accel import intersect, occluded
+    from tputracer_torch.integrators import pt, pt_cuda
+
+    names = ("o", "d", "L", "thr", "alive", "prev_delta", "prev_pdf")
+    uid, carry = pt_start(sc, cfg, n, offset)
+    wave = pt_cuda.Wavefront(sc, uid, cfg)
+    live, err = [], 0.0
+
+    def compare(name, g, w, where):
+        nonlocal err
+        if g.dtype == torch.float32:
+            diff = torch.where(g == w, 0.0, (g - w).abs())
+            err = max(err, float(diff.max()) if g.numel() else 0.0)
+        if not torch.equal(g, w):
+            lanes = int((g != w).reshape(g.shape[0], -1).any(1).sum()
+                        if g.dim() else 1)
+            far = (f"{ulps(g, w)} ulps, max abs err {err}"
+                   if g.dtype == torch.float32 else "")
+            raise SmokeFailure(f"pt: {name} differs on {lanes} lanes "
+                               f"({far}) at {where}")
+
+    with torch.no_grad():
+        for b in range(cfg.max_bounces + 1):
+            want, st_p = pt._bounce_step_plain(sc, None, uid, carry, b=b,
+                                               cfg=cfg, isect=intersect,
+                                               occl=occluded)
+            wave.tmax = torch.where(carry[4], BIG, 0.0)
+            before = pt_launches()
+            got, st_k = pt_cuda.bounce_cuda(
+                wave, uid, tuple(x.clone() for x in carry), b=b)
+            torch.cuda.synchronize()
+            last = b == cfg.max_bounces
+            check(pt_launches() == before + (1 if last else 2),
+                  f"pt: {pt_launches() - before} launches at bounce {b}")
+            alive = want[4]
+            where = f"{n} lanes, bounce {b}, {cfg}"
+            for k, (g, w) in enumerate(zip(got, want)):
+                m = slice(None) if names[k] in ("L", "alive") else alive
+                compare(names[k], g[m], w[m], where)
+            if not last:
+                compare("the next tmax", wave.tmax,
+                        torch.where(alive, BIG, 0.0), where)
+            for name, k, p in zip(("rays_closest", "alive", "rays_shadow"),
+                                  st_k, st_p):
+                check((k is None) == (p is None),
+                      f"pt: {name} {k} against {p} at {where}")
+                if k is not None:
+                    compare(name, k.to(torch.float32), p, where)
+            live.append(int(alive.sum()))
+            carry = want
+    return live, err
+
+
+def pt_times(n):
+    """The two kernels of bounce 1 of a config-1 chunk of n paths, and
+    _bounce_step_plain's shading of the same bounce, each with its
+    closest hit given and every shadow ray clear (no intersection
+    kernel): inside a CUDA graph (graph_ms), the kernels less the copies
+    that put their in-place carry back before each call, beside their
+    bound: the bytes that bounce's lanes need (pt_bytes of the ray counts
+    of one call, MIS off as in config 1)."""
+    from tputracer_torch.accel import (closest, finalize_hit, intersect,
+                                       occluded)
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.integrators import pt, pt_cuda
+    from tputracer_torch.scene import cornell_box
+
+    sc = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(width=1024, height=1024, spp=1, max_bounces=4)
+    uid, carry = pt_start(sc, cfg, n)
+    with torch.no_grad():
+        carry, _ = pt._bounce_step_plain(sc, None, uid, carry, b=0, cfg=cfg,
+                                         isect=intersect, occl=occluded)
+        carry = tuple(x.contiguous() for x in carry)
+        t, prim = closest(sc, carry[0], carry[1], torch.zeros_like(carry[6]),
+                          torch.where(carry[4], BIG, 0.0))
+        clear = torch.zeros((n,), dtype=torch.bool, device="cuda")
+        wave = pt_cuda.Wavefront(sc, uid, cfg)
+        tmax0 = torch.where(carry[4], BIG, 0.0)
+        work = tuple(x.clone() for x in carry)
+
+        def restore():
+            for dst, src in zip(work, carry):
+                dst.copy_(src)
+            wave.tmax.copy_(tmax0)
+
+        def kernels():
+            restore()
+            pt_cuda.bounce_cuda(wave, uid, work, b=1,
+                                closest=lambda *a: (t, prim),
+                                occl=lambda *a, **k: clear)
+
+        def plain():
+            pt._bounce_step_plain(
+                sc, None, uid, carry, b=1, cfg=cfg,
+                isect=lambda s, o, d, tmin, tmax: finalize_hit(
+                    s, o, d, t, prim, t < tmax),
+                occl=lambda *a, **k: clear)
+
+        wave.counts.zero_()
+        kernels()
+        issued, active, shadow = wave.counts[:, 1].tolist()
+        wave.counts.zero_()
+        nbytes = pt_bytes(n, issued, active, shadow, cfg.mis)
+        bound_ms, bound_by = bound(0, nbytes)
+        restore_ms = graph_ms(restore)
+        return dict(lanes=n, live=issued, active=active, shadow=shadow,
+                    bytes=nbytes, bytes_per_live_lane=nbytes / issued,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    graph_ms=graph_ms(kernels) - restore_ms,
+                    restore_graph_ms=restore_ms,
+                    plain_graph_ms=graph_ms(plain, reps=2))
+
+
+def phase_pt(mesh):
+    """Phase 20: PT's bounce kernels against _bounce_step_plain on config
+    1's and config 2's chunks and one of config 3's, timed, and config 1's
+    frame graphed."""
+    from tputracer_torch import graphs
+    from tputracer_torch.api import render
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.scene import cornell_box
+
+    t0 = time.perf_counter()
+    boxes, spheres = (cornell_box(v, device="cuda")
+                      for v in ("boxes", "spheres"))
+    c1 = RenderConfig(width=512, height=512, spp=16, max_bounces=4)
+    c2 = RenderConfig(**SPHERES_CFG)
+    bits = {"config 1": pt_bounce_bits(boxes, c1, 1 << 20),
+            "config 2": pt_bounce_bits(spheres, c2, 1 << 20),
+            "config 2 mis": pt_bounce_bits(spheres, c2.with_(mis=True),
+                                           1 << 20, offset=1 << 20),
+            "config 3": pt_bounce_bits(mesh, RenderConfig(**MESH_CFG),
+                                       1 << 16)}
+    max_abs = max(err for _, err in bits.values())
+    times = pt_times(1 << 20)
+    emit("pt", live_after_each_bounce={k: v[0] for k, v in bits.items()},
+         max_abs_err=max_abs, **times)
+    graphs.clear()
+    launches = []
+    for _ in range(3):   # eager, the capture, a replay
+        before = pt_launches()
+        render(boxes, c1)
+        torch.cuda.synchronize()
+        launches.append(pt_launches() - before)
+    census = graphs.graphs()[0].census
+    nodes = {k: census[k] for k in ("pt_prepare_kernel", "pt_finish_kernel",
+                                    "uniform3_kernel")}
+    check(launches == [4 * 9] * 3, f"pt: launches {launches} a frame, "
+                                   f"want 36")
+    check(list(nodes.values()) == [20, 16, 4],
+          f"pt: the frame's graph holds {nodes}")
+    graphs.clear()
+    res = dict(frame_launches=launches, graph_nodes=nodes,
+               kernel_nodes=census["kernel_nodes"], max_abs_err=max_abs,
+               seconds=time.perf_counter() - t0)
+    emit("pt", **res)
+    return times, res
+
+
 def main():
     start = time.perf_counter()
     phase_device()
@@ -3519,6 +3786,7 @@ def main():
     phase_graphs(mesh)
     s_times, s_renders, s_max_abs = phase_sampler(mesh)
     c_times, c_res, (sp_times, sp_res) = phase_connect()
+    pt_t, pt_res = phase_pt(mesh)
     emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
@@ -3627,6 +3895,18 @@ def main():
                                     "plain_ms", "plain_graph_ms",
                                     "phase_graph_ms", "plain_phase_graph_ms",
                                     "bound_ms", "bound_by")},
+        "library_ms": None,
+    }, {
+        "name": "pt",
+        "route": "cuda",
+        "source": "tputracer_torch/csrc/pt.cu",
+        "replaces": None,    # no Pallas counterpart: XLA fuses the bounce
+        # the PT kernels' launches over a replay of config 1's frame
+        "launches": pt_res["frame_launches"][-1],
+        "max_abs_err": pt_res["max_abs_err"],
+        **{k: pt_t[k] for k in ("lanes", "live", "bytes_per_live_lane",
+                                "graph_ms", "plain_graph_ms", "bound_ms",
+                                "bound_by")},
         "library_ms": None,
     }]}), flush=True)
     print(card_line(), flush=True)

@@ -19,8 +19,11 @@ against connection_radiance_plain bit for bit, graphed and eager, and a
 BDPT gradient on the torch route; BDPT's splat kernels (the same source,
 ``-k splat``) against t1_splats_plain: the shadow-ray count bit for bit,
 the film bit for bit where the splats land on distinct pixels and
-elsewhere within the bound of its atomic sums' order, graphed and eager.
-The ray sets and the splat's bound are chip_smoke.py's.
+elsewhere within the bound of its atomic sums' order, graphed and eager;
+PT's bounce kernels (csrc/pt.cu, ``-k pt_``) against _bounce_step_plain
+bounce by bounce, renders and graphed renders through them against the
+torch route, bit for bit, and their refusals.  The ray sets, the splat's
+bound and the PT bounce comparison are chip_smoke.py's.
 
 These tests need a CUDA card and skip without one. They import neither
 JAX nor the JAX package, so they also run where JAX is not installed; on
@@ -1122,14 +1125,14 @@ def test_uniform3_routes_cuda_uids_to_the_kernel():
 
 
 # config 1 and config 3 (BASELINE configs[0], [2]) and their draws a
-# render: a chunk draws for the camera, for the light and the BSDF at every
-# bounce but the last, and for Russian roulette from rr_start on
+# render: a chunk draws for the camera; the light, BSDF and Russian
+# roulette draws are the PT kernels' own (csrc/pt.cu)
 SAMPLER_RENDERS = {
     "config 1": ("boxes", RenderConfig(width=512, height=512, spp=16,
-                                       max_bounces=4), 4 * (1 + 8 + 1)),
+                                       max_bounces=4), 4),
     "config 3": ("mesh", RenderConfig(width=256, height=256, spp=4,
                                       max_bounces=8, rr_start=3,
-                                      chunk_size=1 << 16), 4 * (1 + 16 + 5)),
+                                      chunk_size=1 << 16), 4),
 }
 
 
@@ -1138,8 +1141,8 @@ SAMPLER_RENDERS = {
 def test_graph_renders_through_the_sampler_kernel_match_torch_sampler(
         case, monkeypatch):
     """A graphed render (its eager first call, the capture, a replay)
-    launches the sampler kernel once a draw, and the graph holds those
-    launches; its image and ray counts are, bit for bit, those of the
+    launches the sampler kernel once a draw, the camera's one a chunk, and
+    the graph holds those launches; its image and ray counts are, bit for bit, those of the
     same graphed render with uniform3 forced onto the torch route."""
     from tputracer_torch import graphs, rng
     from tputracer_torch.api import render
@@ -1506,3 +1509,170 @@ def test_graph_bdpt_splat_kernels_match_eager_plain(power, monkeypatch):
     bdpt_through(sc, cfg)
     assert [r.counts["kernel"] for r in trace.records("bdpt.splat")] == \
         [1] * chunks
+
+
+# ---- PT's bounce kernels (csrc/pt.cu) ---------------------------------------
+
+def pt_scene(name):
+    """A Cornell variant, or the clustered mesh (subdiv 4) for "mesh"."""
+    if name.startswith("mesh"):
+        return mesh_scene(subdiv=4, device="cuda")
+    return cornell_box(name, device="cuda")
+
+
+# (scene, lanes, config changes): boxes through B1; config 2's mirror and
+# glass spheres with Russian roulette from bounce 3 (and from bounce 1);
+# MIS on and off; radiance transport off; a clustered mesh through B2 and
+# through the pair route; chunks of 2^16, 2^20 and 2^16 + 5 lanes
+PT_BASE = dict(width=256, height=256, spp=16, max_bounces=4, seed=3)
+PT_CASES = (
+    ("boxes", 1 << 16, {}), ("boxes", 1 << 20, {}),
+    ("boxes", (1 << 16) + 5, {"mis": True}),
+    ("spheres", 1 << 20, {"max_bounces": 6}),
+    ("spheres", 1 << 16, {"max_bounces": 6, "mis": True}),
+    ("spheres", 1 << 16, {"max_bounces": 6, "rr_start": 1,
+                          "transport_radiance": False}),
+    ("spheres", (1 << 16) + 5, {"mis": True, "transport_radiance": False,
+                                "rr_start": 1}),
+    ("mesh", 1 << 16, {"max_bounces": 8}),
+    ("mesh", 1 << 16, {"max_bounces": 8, "mis": True, "rr_start": 1}),
+    ("mesh pairs", 1 << 16, {"max_bounces": 8}),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PT_CASES, ids=[
+    f"{c[0]}-{c[1]}-" + "-".join(f"{k}={v}" for k, v in c[2].items())
+    for c in PT_CASES])
+def test_pt_kernels_match_plain_bounce_by_bounce(case, monkeypatch):
+    """Each bounce of a chunk through the PT kernels (csrc/pt.cu) gives
+    _bounce_step_plain's carry from the same carry: L, alive, the ray
+    counts and the next tmax bit for bit on every lane, o, d, thr,
+    prev_delta and prev_pdf on every lane still alive, the largest
+    difference 0; two launches a bounce, one on the last
+    (chip_smoke.pt_bounce_bits)."""
+    from chip_smoke import pt_bounce_bits
+
+    need_card()
+    name, lanes, changes = case
+    if name == "mesh pairs":
+        monkeypatch.setenv("TPUTRACER_PAIRS", "1")
+    cfg = RenderConfig(**{**PT_BASE, **changes})
+    live, err = pt_bounce_bits(pt_scene(name), cfg, lanes,
+                               offset=lanes // 3)
+    assert live[0] > 0 and live[-1] <= live[0] and err == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["boxes", "spheres", "mesh", "mesh sort",
+                                  "mesh pairs"])
+def test_pt_render_through_kernels_matches_torch_route(case, monkeypatch):
+    """render_pt on the card takes the kernels (pt_on_card; every
+    pt.bounce.<b> span counts kernel 1, two launches a full bounce and one
+    on the last, a chunk) and gives the image and ray counts of the same
+    render on the torch route (the card's intersectors injected) bit for
+    bit; with sort_rays too; nothing on the kernels' route waits on the
+    card."""
+    from chip_smoke import pt_launches
+    from tputracer_torch import trace
+    from tputracer_torch.accel import intersect, occluded
+    from tputracer_torch.integrators.pt import pt_on_card
+
+    need_card()
+    if case == "mesh pairs":
+        monkeypatch.setenv("TPUTRACER_PAIRS", "1")
+    sc = pt_scene(case)
+    cfg = RenderConfig(width=64, height=64, spp=16, max_bounces=6,
+                       rr_start=3, chunk_size=1 << 14,
+                       sort_rays=case == "mesh sort")
+    chunks = cfg.width * cfg.height * cfg.spp // cfg.chunk_size
+    uid = torch.arange(4, dtype=torch.int64, device="cuda")
+    assert pt_on_card(sc, uid)
+    trace.reset()
+    before = pt_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img_k, st_k = render_pt(sc, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert pt_launches() - before == chunks * (2 * cfg.max_bounces + 1)
+    recs = [r for b in range(cfg.max_bounces + 1)
+            for r in trace.records(f"pt.bounce.{b}")]
+    assert len(recs) == chunks * (cfg.max_bounces + 1)
+    assert all(r.counts["kernel"] == 1 for r in recs)
+    before = pt_launches()
+    img_p, st_p = render_pt(sc, cfg, intersect_fn=intersect,
+                            occluded_fn=occluded)
+    torch.cuda.synchronize()
+    assert pt_launches() == before
+    assert torch.equal(img_k, img_p)
+    assert all(st_k[k].dtype == torch.float32 and torch.equal(st_k[k], st_p[k])
+               for k in st_p)
+    assert float(img_k.mean()) > 0.05
+    trace.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["boxes", "spheres", "mesh"])
+def test_graph_pt_kernels_match_eager_torch_route(case):
+    """api.render through its graph (the eager first call, the capture,
+    two replays) gives the image and ray counts of the eager render on the
+    torch route bit for bit; the graph holds the PT kernels, two a full
+    bounce and one on the last, a chunk, and the sampler kernel once a
+    chunk (the camera's draw)."""
+    from tputracer_torch import graphs
+    from tputracer_torch.accel import intersect, occluded
+    from tputracer_torch.api import render
+
+    need_card()
+    graphs.clear()
+    scene, cfg = GRAPH_CASES[case]
+    sc = graph_scene(scene)
+    chunks = -(-cfg.width * cfg.height * cfg.spp // cfg.chunk_size)
+    img_p, st_p = render_pt(sc, cfg, intersect_fn=intersect,
+                            occluded_fn=occluded)
+    for _ in range(4):
+        img, st = render(sc, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(img, img_p)
+        assert all(torch.equal(st[k], st_p[k]) for k in st_p)
+    census = graphs.graphs()[0].census
+    assert census["pt_prepare_kernel"] == chunks * (cfg.max_bounces + 1)
+    assert census["pt_finish_kernel"] == chunks * cfg.max_bounces
+    assert census["uniform3_kernel"] == chunks
+    graphs.clear()
+
+
+@pytest.mark.cuda
+def test_pt_kernels_refuse_what_they_do_not_take():
+    """bounce_cuda refuses, before its launch, a carry tensor that is not
+    contiguous or not of its dtype, and a shadow verdict that is not an
+    (n,) bool tensor; a gradient call on the card takes the torch route."""
+    import dataclasses
+
+    from chip_smoke import pt_launches, pt_start
+    from tputracer_torch.integrators import pt, pt_cuda
+
+    need_card()
+    sc = cornell_box("boxes", device="cuda")
+    cfg = RenderConfig(width=64, height=64, spp=1, max_bounces=2)
+    uid, carry = pt_start(sc, cfg, 4096)
+    wave = pt_cuda.Wavefront(sc, uid, cfg)
+    launches = pt_launches()
+    strided = torch.empty((4096, 6), device="cuda")[:, :3]
+    for k, bad in ((1, strided), (3, carry[3].double()),
+                   (4, carry[4].float()), (6, carry[6][:-1])):
+        bent = carry[:k] + (bad,) + carry[k + 1:]
+        with pytest.raises(ValueError, match="bounce_cuda"):
+            pt_cuda.bounce_cuda(wave, uid, bent, b=0)
+    with pytest.raises(ValueError, match="bounce_cuda: want occ"):
+        pt_cuda.bounce_cuda(wave, uid, carry, b=0,
+                            occl=lambda s, o, d, tmax: (tmax > 0).float())
+    assert pt_launches() == launches + 1   # the last call's first kernel
+    albedo = sc.mat_albedo.clone().requires_grad_()
+    graded = dataclasses.replace(sc, mat_albedo=albedo)
+    assert not pt.pt_on_card(graded, uid)
+    with torch.no_grad():
+        assert pt.pt_on_card(graded, uid)

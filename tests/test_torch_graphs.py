@@ -264,18 +264,18 @@ def test_kernel_of_names_the_wrappers_kernels(symbol, kernel):
 def test_kernels_map_to_the_wrappers_launch_counters():
     """Every kernel a library of cuda_build declares, mangled or
     demangled, is one graphs.kernel_of names, and no two libraries
-    declare the same kernel: the five libraries' eleven kernels, all but
+    declare the same kernel: the six libraries' thirteen kernels, all but
     the connection table's fill counted in cuda_build.LAUNCHES."""
     from tputracer_torch import cuda_build, rng  # noqa: F401
     from tputracer_torch.accel import (intersect_cuda, pairs_cuda,  # noqa
                                        traverse_cuda)
-    from tputracer_torch.integrators import bdpt_cuda  # noqa: F401
+    from tputracer_torch.integrators import bdpt_cuda, pt_cuda  # noqa: F401
 
     declared = [k for lib in cuda_build.LIBRARIES.values()
                 for k in lib.kernels()]
-    assert len(declared) == len(set(declared)) == 11
+    assert len(declared) == len(set(declared)) == 13
     assert sorted(cuda_build.LIBRARIES) == ["connect.cu", "intersect.cu",
-                                            "pairs.cu", "rng.cu",
+                                            "pairs.cu", "pt.cu", "rng.cu",
                                             "traverse.cu"]
     for k in declared:
         assert graphs.kernel_of(f"_ZN12_GLOBAL__N_1{len(k)}{k}Ev") == k

@@ -4,7 +4,7 @@ CPU.
 
 An eager render records ``pt.bounce.0`` to ``pt.bounce.<max_bounces>``
 once a chunk, in order, under the render call's root, each with its
-``lanes``; the phases change no bit; inside a capture (with stand-in
+``lanes`` and ``kernel`` 0 (the torch route); the phases change no bit; inside a capture (with stand-in
 events) a bounce opens on the event that closed the one before.
 ``device_count`` outside :func:`trace.counting` records nothing and
 reads no value; inside it a chunked call hands over its closest-hit rays
@@ -57,7 +57,7 @@ def test_an_eager_render_records_each_bounce_as_a_phase(case):
         assert len(recs[name]) == chunks, name
         for rec in recs[name]:
             assert rec.root == call.id and rec.device is None, name
-            assert rec.counts == {"lanes": chunk}, name
+            assert rec.counts == {"lanes": chunk, "kernel": 0}, name
     for c in range(chunks):
         ends = [(recs[n][c].start_ns, recs[n][c].end_ns) for n in names]
         assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:])), c

@@ -94,8 +94,9 @@ def _sph_candidates(scene, o, d, tmin, tmax):
     return t, valid
 
 
-def intersect_brute(scene, o, d, tmin, tmax) -> Hit:
-    """Closest hit over all primitives: masked argmin over the (N, T+S) t-matrix."""
+def closest_brute(scene, o, d, tmin, tmax):
+    """(t, prim) of the closest hit over all primitives: masked argmin over
+    the (N, T+S) t-matrix (t = _BIG on a miss)."""
     tt, tv = _tri_candidates(scene, o, d, tmin, tmax)
     t_all = torch.where(tv, tt, _BIG)
     if scene.n_spheres:
@@ -104,8 +105,13 @@ def intersect_brute(scene, o, d, tmin, tmax) -> Hit:
 
     prim = torch.argmin(t_all, dim=1)                   # first minimum
     t = torch.gather(t_all, 1, prim[:, None])[:, 0]
-    valid = t < tmax
-    return finalize_hit(scene, o, d, t, prim.to(torch.int32), valid)
+    return t, prim.to(torch.int32)
+
+
+def intersect_brute(scene, o, d, tmin, tmax) -> Hit:
+    """Closest hit over all primitives (Hit SoA)."""
+    t, prim = closest_brute(scene, o, d, tmin, tmax)
+    return finalize_hit(scene, o, d, t, prim, t < tmax)
 
 
 def finalize_hit(scene, o, d, t, prim, valid) -> Hit:

@@ -155,16 +155,22 @@ def _sphere_best(scene, o, d, tmin, tmax):
     return t, prim
 
 
-def intersect_clustered(scene, o, d, tmin, tmax, walk=_traverse):
-    """Closest hit through the cluster BVH; same Hit SoA as brute force.
-    ``walk`` is ``_traverse`` or a function with its arguments (the CUDA
-    kernel's wrapper, accel.traverse_cuda.traverse)."""
+def closest_clustered(scene, o, d, tmin, tmax, walk=_traverse):
+    """(t, prim) of the closest hit through the cluster BVH.  ``walk`` is
+    ``_traverse`` or a function with its arguments (the CUDA kernel's
+    wrapper, accel.traverse_cuda.traverse)."""
     od, dd, tn, tx = _rays(o, d, tmin, tmax)
     with torch.no_grad():
         bt0, bp0 = _sphere_best(scene, od, dd, tn, tx)
-        t, prim = walk(od, dd, tn, tx, torch.minimum(bt0, tx), bp0,
-                       *traverse_args(scene), leaf=scene.leaf_size,
-                       any_hit=False)
+        return walk(od, dd, tn, tx, torch.minimum(bt0, tx), bp0,
+                    *traverse_args(scene), leaf=scene.leaf_size,
+                    any_hit=False)
+
+
+def intersect_clustered(scene, o, d, tmin, tmax, walk=_traverse):
+    """Closest hit through the cluster BVH; same Hit SoA as brute force
+    (``walk`` as in :func:`closest_clustered`)."""
+    t, prim = closest_clustered(scene, o, d, tmin, tmax, walk=walk)
     return finalize_hit(scene, o, d, t, prim, t < tmax)
 
 

@@ -154,9 +154,14 @@ def _rays(o, d, tmin, tmax):
     return tuple(x.detach().contiguous() for x in (o, d, tmin, tmax))
 
 
+def closest_fused(scene, o, d, tmin, tmax):
+    """(t, prim) of the closest hit over all primitives."""
+    return fused_intersect(*_rays(o, d, tmin, tmax), *scene_args(scene))
+
+
 def intersect_fused(scene, o, d, tmin, tmax):
     """Closest hit over all primitives (Hit SoA)."""
-    t, prim = fused_intersect(*_rays(o, d, tmin, tmax), *scene_args(scene))
+    t, prim = closest_fused(scene, o, d, tmin, tmax)
     return finalize_hit(scene, o, d, t, prim, t < tmax)
 
 

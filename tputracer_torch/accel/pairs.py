@@ -263,13 +263,18 @@ def rounding_bounds(scene, o, d, prim, t):
     return plane, mt
 
 
-def intersect_pairs(scene, o, d, tmin, tmax):
-    """Closest hit through the pair route (Hit SoA)."""
+def closest_pairs(scene, o, d, tmin, tmax):
+    """(t, prim) of the closest hit through the pair route."""
     od, dd, tn, tx = _rays(o, d, tmin, tmax)
     with torch.no_grad():
         bt0, bp0 = _sphere_best(scene, od, dd, tn, tx)
-        t, prim = _pair_traverse(scene, od, dd, tn, tx,
-                                 torch.minimum(bt0, tx), bp0, any_hit=False)
+        return _pair_traverse(scene, od, dd, tn, tx, torch.minimum(bt0, tx),
+                              bp0, any_hit=False)
+
+
+def intersect_pairs(scene, o, d, tmin, tmax):
+    """Closest hit through the pair route (Hit SoA)."""
+    t, prim = closest_pairs(scene, o, d, tmin, tmax)
     return finalize_hit(scene, o, d, t, prim, t < tmax)
 
 

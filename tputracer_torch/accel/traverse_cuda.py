@@ -25,7 +25,8 @@ import ctypes
 import torch
 
 from tputracer_torch import cuda_build
-from tputracer_torch.accel.clustered import (_traverse, intersect_clustered,
+from tputracer_torch.accel.clustered import (_traverse, closest_clustered,
+                                             intersect_clustered,
                                              occluded_clustered)
 from tputracer_torch.cuda_build import Library, check, scratch
 
@@ -100,6 +101,12 @@ def traverse(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n, mask,
     if o.device.type == "cpu":
         return _traverse(*args, leaf=leaf, any_hit=any_hit)
     raise ValueError(f"no traversal route for device {o.device}")
+
+
+def closest_traverse(scene, o, d, tmin, tmax):
+    """(t, prim) of the closest hit through the cluster BVH, via
+    :func:`traverse`."""
+    return closest_clustered(scene, o, d, tmin, tmax, walk=traverse)
 
 
 def intersect_traverse(scene, o, d, tmin, tmax):

@@ -12,8 +12,8 @@ and :func:`scratch` keeps the kernels' per-stream scratch.
 Kernels are compiled with ``nvcc`` at first use, never at import, into
 ``tputracer_torch/csrc/build/`` (listed in ``.gitignore``).  The library
 has a plain C interface and is loaded with ctypes; its file name carries
-a hash of the source and the flags, so an edited kernel is rebuilt and an
-unchanged one is loaded from the cache.
+a hash of the source, its headers and the flags, so an edited kernel is
+rebuilt and an unchanged one is loaded from the cache.
 
 Processes that start together (the ranks of a world sharing one build
 directory) build each library once: the first takes a lock beside it and
@@ -68,9 +68,10 @@ def _nvcc():
 
 def library_path(source: str) -> Path:
     """Where the library of ``csrc/<source>`` is built: its name carries a
-    hash of the source and the flags."""
+    hash of the source, the headers beside it (``*.cuh``) and the flags."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 

@@ -54,7 +54,7 @@ from tputracer_torch.integrators import bdpt_cuda
 from tputracer_torch.integrators.pt import camera_rays, film_from_radiance
 from tputracer_torch.lights import pdf_light_area, sample_light
 from tputracer_torch.lookup import fetch_int
-from tputracer_torch.scene.types import DIFFUSE
+from tputracer_torch.scene.types import DIFFUSE, wants_grad
 from tputracer_torch.trace import phase
 
 _BIG = 3.0e38
@@ -329,19 +329,17 @@ def s0_radiance(scene, cfg, zs):
 def bdpt_on_card(scene, ys, zs):
     """Whether :func:`connection_radiance` and :func:`t1_splats` take the
     card's kernels: vertices on a CUDA device and no gradient wanted.  CPU
-    vertices, and a call with grad enabled where a vertex tensor,
-    ``scene.mat_albedo`` or a camera tensor requires grad, take the torch
-    versions (the kernels have no backward); any other device raises."""
+    vertices, and a call with grad enabled where a vertex tensor or a
+    scene or camera tensor requires grad (``scene.wants_grad``), take the
+    torch versions (the kernels have no backward); any other device
+    raises."""
     dev = zs[0]["beta"].device
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
         raise ValueError(f"no BDPT kernel route for device {dev}")
-    cam = scene.camera
-    return not (torch.is_grad_enabled() and (
-        scene.mat_albedo.requires_grad
-        or any(x.requires_grad for x in (cam.o, cam.corner, cam.du, cam.dv))
-        or any(x.requires_grad for v in zs + ys for x in v.values())))
+    return not (wants_grad(scene) or (torch.is_grad_enabled() and any(
+        x.requires_grad for v in zs + ys for x in v.values())))
 
 
 def connection_radiance(scene, cfg, ys, zs, occl=None, stats_acc=None):

@@ -15,13 +15,22 @@ The RNG is counter-based (tputracer_torch.rng) and keyed by the global
 path uid, so the streams are those of the JAX package, whatever the
 chunking.  Statistics stay on the device; nothing here synchronizes.
 
+On the card (:func:`pt_on_card`) steps 2–5 are two CUDA kernels a bounce
+and chunk around the shadow-ray call (``integrators/pt_cuda.py``,
+``csrc/pt.cu``), step 1 the closest hit's (t, prim) alone
+(``accel.closest``): the same bits, the carry updated in place.  CPU
+calls, gradient calls, ``decision_scene`` and injected intersectors take
+the torch body, :func:`_bounce_step_plain`.
+
 Each bounce b of a chunk is the phase ``pt.bounce.<b>``
 (``tputracer_torch.trace.phase``): a span, and inside a CUDA graph's
 capture a stretch that each replay times on the device, each bounce
 opening on the event that closed the one before.  A chunked call
 hands the capture its closest-hit rays per bounce, summed over the
 chunks, as the count ``pt.live`` and its path count as ``pt.lanes``
-(``trace.device_count``), which each replay's record then reads.
+(``trace.device_count``), which each replay's record then reads.  Each
+bounce's record counts ``kernel``: 1 on the kernels' route, 0 on the
+torch route.
 """
 
 from __future__ import annotations
@@ -36,7 +45,9 @@ from tputracer_torch import rng
 from tputracer_torch.accel import intersect, occluded
 from tputracer_torch.bsdf import (emitted, eval_bsdf, nee_nonspecular,
                                   pdf_bsdf, sample_bsdf)
+from tputracer_torch.integrators import pt_cuda
 from tputracer_torch.lights import pdf_light_area, sample_light
+from tputracer_torch.scene.types import wants_grad
 from tputracer_torch.trace import device_count, phase, span
 
 _BIG = 3.0e38
@@ -81,7 +92,28 @@ def _coherence_key(scene, o, d, alive):
     return torch.where(alive, key, 1 << 14)
 
 
-def _bounce_step(scene, decision_scene, uid, carry, *, b, cfg, isect, occl):
+def pt_on_card(scene, uid, decision_scene=None, intersect_fn=None,
+               occluded_fn=None):
+    """Whether :func:`trace_radiance` takes the card's kernels: uids on a
+    CUDA device, no ``decision_scene``, the default intersectors and no
+    gradient wanted.  CPU uids, and a call with grad enabled where a
+    scene or camera tensor requires grad, a ``decision_scene`` or an
+    injected intersector, take :func:`_bounce_step_plain` (the kernels
+    have no backward, and decide with ``scene`` alone); any other device
+    raises."""
+    dev = uid.device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no PT kernel route for device {dev}")
+    if (decision_scene is not None or intersect_fn is not None
+            or occluded_fn is not None):
+        return False
+    return not wants_grad(scene)
+
+
+def _bounce_step_plain(scene, decision_scene, uid, carry, *, b, cfg, isect,
+                       occl):
     """One wavefront bounce: intersect, emission, NEE, BSDF sample, RR.
 
     carry = (o, d, L, thr, alive, prev_delta, prev_pdf); returns
@@ -189,7 +221,8 @@ def trace_radiance(scene, uid, cfg, decision_scene=None,
 
     intersect_fn / occluded_fn: optional intersection backends with the
     accel.intersect / accel.occluded signatures (the plain version of the
-    kernel plugs in here to be compared with it on the card).
+    kernel plugs in here to be compared with it on the card); either
+    sends the chunk down the torch route (:func:`pt_on_card`).
 
     With cfg.sort_rays (clustered scenes only; ignored on others), the
     wavefront is permuted after each bounce but the last two by a stable
@@ -207,9 +240,12 @@ def trace_radiance(scene, uid, cfg, decision_scene=None,
     dev = uid.device
     isect = intersect if intersect_fn is None else intersect_fn
     occl = occluded if occluded_fn is None else occluded_fn
+    on_card = pt_on_card(scene, uid, decision_scene, intersect_fn,
+                         occluded_fn)
+    wave = pt_cuda.Wavefront(scene, uid, cfg) if on_card else None
     o, d = camera_rays(scene, uid, cfg)
     do_sort = cfg.sort_rays and scene.n_clusters > 0
-    remat = cfg.remat and torch.is_grad_enabled()
+    remat = cfg.remat and torch.is_grad_enabled() and not on_card
 
     carry = (
         o, d,
@@ -224,10 +260,14 @@ def trace_radiance(scene, uid, cfg, decision_scene=None,
     shadow_counts = []                    # shadow rays actually traced
     bounce = None                         # the last bounce's phase
     for b in range(cfg.max_bounces + 1):
-        step = functools.partial(_bounce_step, b=b, cfg=cfg, isect=isect,
-                                 occl=occl)
-        with phase(f"pt.bounce.{b}", after=bounce, lanes=n) as bounce:
-            if remat:
+        step = functools.partial(_bounce_step_plain, b=b, cfg=cfg,
+                                 isect=isect, occl=occl)
+        with phase(f"pt.bounce.{b}", after=bounce, lanes=n,
+                   kernel=int(on_card)) as bounce:
+            if on_card:
+                carry, (issued, n_active, n_shadow) = pt_cuda.bounce_cuda(
+                    wave, uid, carry, b=b)
+            elif remat:
                 # scene, decision_scene and uid are explicit arguments, as in
                 # the reference, so the recomputation reads them and not
                 # closure state; the bounce draws from the counter-based RNG,
@@ -247,16 +287,19 @@ def trace_radiance(scene, uid, cfg, decision_scene=None,
                                                     carry[4]), stable=True)
                 uid = uid[perm]
                 carry = tuple(x[perm] for x in carry)
+                if wave is not None:
+                    wave.permute(perm)
 
     L = carry[2]
     if do_sort:
         L = L[torch.argsort(uid)]   # back to uid order for the film
     empty = torch.zeros((0,), dtype=torch.float32, device=dev)
-    stats = {
-        "alive": torch.stack(alive_counts),
-        "rays_closest": torch.stack(issued_counts),
-        "rays_shadow": torch.stack(shadow_counts) if shadow_counts else empty,
-    }
+    # float32 counts; the kernels' route counts in int32, which gives the
+    # torch route's float sums exactly below 2^24 lanes a chunk
+    stats = {k: torch.stack(v).to(torch.float32) if v else empty
+             for k, v in (("alive", alive_counts),
+                          ("rays_closest", issued_counts),
+                          ("rays_shadow", shadow_counts))}
     return L, stats
 
 

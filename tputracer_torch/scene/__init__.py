@@ -7,6 +7,7 @@ from tputracer_torch.scene.types import (  # noqa: F401
     make_camera,
     make_scene,
     scene_from_numpy,
+    wants_grad,
 )
 from tputracer_torch.scene.cornell import cornell_box, furnace  # noqa: F401
 from tputracer_torch.scene.mesh import (  # noqa: F401

@@ -119,6 +119,16 @@ TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(Scene)
 CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
 
 
+def wants_grad(scene):
+    """Whether a call on ``scene`` wants a gradient: grad enabled and a
+    scene or camera tensor requiring grad.  The hand-written kernels have
+    no backward, so such calls take the torch routes."""
+    cam = scene.camera
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for x in [getattr(scene, f) for f in TENSOR_FIELDS]
+        + [getattr(cam, f) for f in CAMERA_FIELDS])
+
+
 def _tensor(x, dtype, device):
     # np.array copies: the source may be a read-only view (a JAX leaf)
     return torch.from_numpy(np.array(x, dtype=dtype, order="C")).to(device)
