@@ -131,8 +131,9 @@ Run from the root of a checkout.  Phases, each printing one line:
      its second call) and a BDPT DP step at 64x64.  With two cards also
      P = 2 on NCCL, a card a rank, and the scaling efficiency.  Then the
      capacity scene (mesh_scene(subdiv=8, leaf_size=128), more clusters
-     than one traversal launch stages, which must refuse it) tiled over
-     P = 4 ranks from a host build, against the plain walk on the card.
+     than the flat scan stages, so one launch takes the tree walk, which
+     must give the plain walk's bits) tiled over P = 4 ranks from a host
+     build, against the plain walk on the card.
  16. spheres: the config-2 path, api.render of Cornell "spheres" (a mirror
      and a glass sphere) at 256x256, 64 spp, 6 bounces, rr_start=3, in
      chunks of 2^20; it must launch the intersection kernel 52 times (4
@@ -216,6 +217,21 @@ Run from the root of a checkout.  Phases, each printing one line:
      1's frame through
      api.render (eager, capture, replay): 36 launches a call, the graph
      holding 20 prepare, 16 finish and 4 sampler kernels.
+ 21. capacity: the capacity scene (mesh_scene(subdiv=8), 18,304 clusters,
+     past what the flat scan stages) built on the card, rendered through
+     api.render at the mesh cell's settings (config 3's: 256x256, 4 spp,
+     8 bounces, rr_start=3, chunks of 2^16), eager, capture and replay:
+     68 tree-walk launches a call (cuda_build.LAUNCHES, zeroed before
+     each), the graph's image the eager one's, and the walk's counters'
+     boxes and clusters a ray.  Then every closest-hit and shadow call of
+     the first chunk of that render (2^16 rays each, recorded through the
+     integrator's hooks) through the tree walk against the plain walk
+     (clustered._traverse in blocks of rays), t and prim bit for bit; on
+     bounce 0's closest-hit call the walk timed alone and inside a CUDA
+     graph, the plain walk timed, and the bound of the work any walk in
+     (te, c) order does on those rays (perfbench/visit_bound.visit_work:
+     a slab test of each cluster entered before the final hit, the slots'
+     tests, each visited cluster's bytes once).
 
 Phases 4, 7, 10, 12, 13 and 16 go through the same entry points, whose
 first call of a key runs eagerly, so their counted calls are eager ones;
@@ -2552,7 +2568,7 @@ def phase_dist(c1_img, c3_img, c3_stats, c4_img):
 
     from tputracer_torch.accel import intersect_clustered, occluded_clustered
     from tputracer_torch.accel import traverse_cuda as tc
-    from tputracer_torch.accel.clustered import traverse_args
+    from tputracer_torch.accel.clustered import _traverse, traverse_args
     from tputracer_torch.api import _loss_and_grads, grad_render
     from tputracer_torch.config import BdptConfig, RenderConfig
     from tputracer_torch.dist import (launch, make_mesh, render_sharded,
@@ -2647,13 +2663,15 @@ def phase_dist(c1_img, c3_img, c3_stats, c4_img):
                 k: statistics.median(wall_s(fn, 3))
                 / (2 * nccl[0][k]["render_s"]) for k, fn in one.items()}
 
-        # the capacity scene: too many clusters for one launch
+        # the capacity scene: more clusters than the flat scan stages, so
+        # one launch takes the tree walk, which must give the plain walk's
+        # bits
         t0 = time.perf_counter()
         cap = mesh_scene(device="cpu", **CAP_SCENE)
         cap_build_s = time.perf_counter() - t0
         max_clusters = tc.LIB.limit("tpt_traverse_max_clusters")
         check(cap.n_clusters > max_clusters,
-              f"capacity scene: {cap.n_clusters} clusters, the kernel "
+              f"capacity scene: {cap.n_clusters} clusters, the flat scan "
               f"stages {max_clusters}")
         cap_card = cap.to("cuda")
         n = 1024
@@ -2662,16 +2680,15 @@ def phase_dist(c1_img, c3_img, c3_stats, c4_img):
                                           dim=1)
         zero, far = torch.zeros(n, device="cuda"), torch.full(
             (n,), BIG, device="cuda")
-        refused = ""
-        try:
-            tc.traverse_cuda(o, d, zero, far, far,
-                             torch.full((n,), -1, dtype=torch.int32,
-                                        device="cuda"),
-                             *traverse_args(cap_card), leaf=cap.leaf_size)
-        except ValueError as e:
-            refused = str(e)
-        check(str(max_clusters) in refused,
-              f"one launch on the capacity scene was not refused: {refused!r}")
+        walk_in = (o, d, zero, far, far,
+                   torch.full((n,), -1, dtype=torch.int32, device="cuda"))
+        t_k, p_k = tc.traverse_cuda(*walk_in, *traverse_args(cap_card),
+                                    leaf=cap.leaf_size)
+        t_p, p_p = _traverse(*walk_in, *traverse_args(cap_card),
+                             leaf=cap.leaf_size)
+        check(torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
+              "the tree walk on the capacity scene differs from the plain "
+              "walk")
         cap_cfg = RenderConfig(**CAP_CFG)
         t0 = time.perf_counter()
         cap_img, _ = render_pt(cap_card, cap_cfg,
@@ -2689,7 +2706,8 @@ def phase_dist(c1_img, c3_img, c3_stats, c4_img):
         out["capacity_world_s"] = time.perf_counter() - t0
         out["capacity_scene"] = {
             "n_tris": cap.n_tris, "n_clusters": cap.n_clusters,
-            "max_clusters": max_clusters, "refused": refused,
+            "max_clusters": max_clusters,
+            "tree_walk_hits": int((p_k >= 0).sum()),
             "host_build_s": cap_build_s,
             # the plain walk's hooks take the torch shading too
             "plain_route_render_s": plain_s,
@@ -3060,7 +3078,8 @@ def graph_ms(fn, reps=20):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured on the warmed stream, whose kernel scratch the warm-up made
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     return cuda_ms(graph.replay, 1, 5) / reps
@@ -3754,6 +3773,124 @@ def phase_pt(mesh):
     return times, res
 
 
+# ---- phase 21: the capacity scene through api.render -----------------------
+
+
+def plain_walk_blocks(walk_in, args, leaf, any_hit, block=4096):
+    """clustered._traverse in blocks of rays: its (rays, C, 3) slab test
+    at C = 18,304 does not fit at once; each ray's walk is its own, so the
+    bits are the whole call's."""
+    from tputracer_torch.accel.clustered import _traverse
+
+    outs = [_traverse(*(x[s:s + block] for x in walk_in), *args, leaf=leaf,
+                      any_hit=any_hit)
+            for s in range(0, walk_in[0].shape[0], block)]
+    return (torch.cat([t for t, _ in outs]),
+            torch.cat([p for _, p in outs]))
+
+
+def phase_capacity():
+    """Phase 21: the capacity scene through api.render at the mesh cell's
+    settings, counted, and the tree walk held to the plain walk on that
+    render's own calls, timed beside its visit bound."""
+    from perfbench.visit_bound import visit_work
+    from tputracer_torch import cuda_build, graphs
+    from tputracer_torch.accel import traverse_cuda as tc
+    from tputracer_torch.accel.clustered import traverse_args
+    from tputracer_torch.api import render
+    from tputracer_torch.config import RenderConfig
+    from tputracer_torch.integrators.pt import trace_radiance
+    from tputracer_torch.scene import mesh_scene
+
+    t0 = time.perf_counter()
+    sc = mesh_scene(device="cuda", **CAP_SCENE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    max_clusters = tc.LIB.limit("tpt_traverse_max_clusters")
+    check(sc.n_clusters > max_clusters,
+          f"capacity: {sc.n_clusters} clusters, the flat scan stages "
+          f"{max_clusters}")
+    cfg = RenderConfig(**MESH_CFG)
+    chunks = -(-cfg.width * cfg.height * cfg.spp // cfg.chunk_size)
+    want = chunks * (2 * cfg.max_bounces + 1)
+    graphs.clear()
+    launches, imgs = [], []
+    for call in range(3):   # eager, the capture, a replay
+        cuda_build.LAUNCHES["traverse_kernel"] = 0
+        img, _ = render(sc, cfg)
+        torch.cuda.synchronize()
+        launches.append(cuda_build.LAUNCHES["traverse_kernel"])
+        imgs.append(img)
+        if call == 0:   # the eager frame's sums (zeroed at its start)
+            counts = tc.counts_of(sc.device).tolist()
+    check(launches == [want] * 3,
+          f"capacity: {launches} tree-walk launches a call, want {want}")
+    check(all(torch.equal(i, imgs[0]) for i in imgs[1:]),
+          "capacity: the graphed render differs from the eager one")
+    nodes, visits, rays = counts
+    check(rays > 0 and nodes < 0.1 * sc.n_clusters * rays,
+          f"capacity: the walk's counts {counts}")
+    graphs.clear()
+    render_s = time.perf_counter() - t0 - build_s
+
+    # every call of the render's first chunk, held bit for bit
+    closest, shadow, isect, occl = recording_hooks()
+    uid = torch.arange(cfg.chunk_size, dtype=torch.int64, device="cuda")
+    trace_radiance(sc, uid, cfg, intersect_fn=isect, occluded_fn=occl)
+    check(len(closest) == cfg.max_bounces + 1
+          and len(shadow) == cfg.max_bounces,
+          f"capacity: {len(closest)} closest and {len(shadow)} shadow calls")
+    args = traverse_args(sc)
+    max_abs, live = 0.0, []
+    for k, (rays_k, any_hit) in enumerate(
+            [(r, False) for r in closest] + [(r, True) for r in shadow]):
+        o, d, tmin, tmax = rays_k
+        walk_in = (o, d, tmin, tmax, tmax.clone(),
+                   torch.full(tmax.shape, -1, dtype=torch.int32,
+                              device="cuda"))
+        before = cuda_build.LAUNCHES["traverse_kernel"]
+        t_k, p_k = tc.traverse_cuda(*walk_in, *args, leaf=sc.leaf_size,
+                                    any_hit=any_hit)
+        t_p, p_p = plain_walk_blocks(walk_in, args, sc.leaf_size, any_hit)
+        torch.cuda.synchronize()
+        check(cuda_build.LAUNCHES["traverse_kernel"] == before + 1,
+              "capacity: a call was not one tree-walk launch")
+        err = float((t_k - t_p).abs().max())
+        check(torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
+              f"capacity: the tree walk differs from the plain walk on "
+              f"call {k} ({'any' if any_hit else 'closest'} hit): "
+              f"{int((p_k != p_p).sum())} prims, t err {err}")
+        max_abs = max(max_abs, err)
+        live.append(int((tmax > tmin).sum()))
+
+    # bounce 0's closest-hit call timed, beside its visit bound
+    o, d, tmin, tmax = closest[0]
+    walk_in = (o, d, tmin, tmax, tmax.clone(),
+               torch.full(tmax.shape, -1, dtype=torch.int32, device="cuda"))
+
+    def kernel():
+        return tc.traverse_cuda(*walk_in, *args, leaf=sc.leaf_size)
+
+    def plain():
+        return plain_walk_blocks(walk_in, args, sc.leaf_size, False)
+
+    t_final, _ = kernel()
+    ops, nbytes = visit_work(o, d, tmin, tmax, t_final, args, sc.leaf_size)
+    bound_ms, bound_by = bound(ops, nbytes)
+    times = {"lanes": o.shape[0], "ms": cuda_ms(kernel, 2, 5),
+             "device_ms": device_ms(kernel), "graph_ms": graph_ms(kernel),
+             "plain_ms": cuda_ms(plain, 0, 1), "bound_ms": bound_ms,
+             "bound_by": bound_by, "bound_bytes": nbytes}
+    res = dict(n_tris=sc.n_tris, n_clusters=sc.n_clusters,
+               top_nodes=sc.top_min.shape[0], frame_launches=launches,
+               boxes_per_ray=nodes / rays, clusters_per_ray=visits / rays,
+               calls_held=len(live), live_rays=live, max_abs_err=max_abs,
+               build_s=build_s, render_s=render_s,
+               seconds=time.perf_counter() - t0)
+    emit("capacity", **res, **times)
+    return times, res
+
+
 def main():
     start = time.perf_counter()
     phase_device()
@@ -3787,6 +3924,8 @@ def main():
     s_times, s_renders, s_max_abs = phase_sampler(mesh)
     c_times, c_res, (sp_times, sp_res) = phase_connect()
     pt_t, pt_res = phase_pt(mesh)
+    free_graphs()
+    cap_t, cap_res = phase_capacity()
     emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
@@ -3907,6 +4046,17 @@ def main():
         **{k: pt_t[k] for k in ("lanes", "live", "bytes_per_live_lane",
                                 "graph_ms", "plain_graph_ms", "bound_ms",
                                 "bound_by")},
+        "library_ms": None,
+    }, {
+        "name": "tree_walk",
+        "route": "cuda",
+        "source": "tputracer_torch/csrc/traverse.cu",
+        "replaces": None,    # the JAX package tiles such scenes instead
+        # the walk's launches over each call of the capacity frame
+        "launches": cap_res["frame_launches"][-1],
+        "max_abs_err": cap_res["max_abs_err"],
+        **{k: cap_t[k] for k in ("lanes", "ms", "device_ms", "graph_ms",
+                                 "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     }]}), flush=True)
     print(card_line(), flush=True)

@@ -37,6 +37,7 @@ from tputracer_torch.accel import (intersect, intersect_brute,
                                    occluded_brute, occluded_clustered)
 from tputracer_torch.accel import clustered as cl
 from tputracer_torch.accel import traverse_cuda as tc
+from tputracer_torch.accel.toptree import top_boxes
 from tputracer_torch.scene import DIFFUSE, scene_from_numpy
 from chip_smoke import face_rays, soup_rays
 from test_torch_scene import jax_arrays
@@ -285,7 +286,7 @@ def one_triangle_clusters(boxes, leaf=5):
         mask[s] = 1.0
     cmin = torch.tensor([b[0] for b in boxes], dtype=torch.float32)
     cmax = torch.tensor([b[1] for b in boxes], dtype=torch.float32)
-    return cmin, cmax, plu, trin, v0n, mask
+    return (cmin, cmax, plu, trin, v0n, mask, *top_boxes(cmin, cmax))
 
 
 def test_traverse_order_and_ties():

@@ -1676,3 +1676,220 @@ def test_pt_kernels_refuse_what_they_do_not_take():
     assert not pt.pt_on_card(graded, uid)
     with torch.no_grad():
         assert pt.pt_on_card(graded, uid)
+
+
+# ----------------------------------------------------------- the tree walk
+
+
+@functools.lru_cache(maxsize=None)
+def capacity_scene():
+    """The capacity scene, mesh_scene(subdiv=8): 1,638,410 triangles in
+    18,304 clusters, more than the flat scan stages."""
+    return mesh_scene(subdiv=8, leaf_size=128, device="cuda")
+
+
+def plain_walk(o, d, tmin, tmax, bt0, bp0, *tables, leaf, any_hit=False,
+               block=2048):
+    """clustered._traverse in blocks of rays (its (rays, C, 3) slab test
+    at C = 18,304 would not fit at once); each ray's walk is its own, so
+    the bits are the whole call's."""
+    outs = [cl._traverse(*(x[s:s + block]
+                           for x in (o, d, tmin, tmax, bt0, bp0)),
+                         *tables, leaf=leaf, any_hit=any_hit)
+            for s in range(0, o.shape[0], block)]
+    return (torch.cat([t for t, _ in outs]),
+            torch.cat([p for _, p in outs]))
+
+
+def walk_in_of(o, d, tmin, tmax):
+    bp0 = torch.full(tmax.shape, -1, dtype=torch.int32, device=tmax.device)
+    return o, d, tmin, tmax, tmax.clone(), bp0
+
+
+def assert_tree_walk_is_plain(sc, walk_in, any_hit, tree=None):
+    """The kernel's walk of ``sc`` (routed by its cluster count, or forced
+    with ``tree``) gives the plain walk's (t, prim) bit for bit, in one
+    launch."""
+    args = cl.traverse_args(sc)
+    launches = LAUNCHES[B2]
+    t_k, p_k = tc.traverse_cuda(*walk_in, *args, leaf=sc.leaf_size,
+                                any_hit=any_hit, tree=tree)
+    t_p, p_p = plain_walk(*walk_in, *args, leaf=sc.leaf_size,
+                          any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert LAUNCHES[B2] == launches + 1
+    assert torch.equal(p_k, p_p) and torch.equal(t_k, t_p)
+    return p_p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_tree_walk_matches_plain_on_the_capacity_scene(any_hit):
+    """The capacity scene takes the tree walk by its cluster count alone:
+    2^16 random room rays give the plain walk's t and prim bit for bit,
+    closest and any hit, and the walk counts every live ray; the flat
+    scan refuses the scene."""
+    need_card()
+    sc = capacity_scene()
+    assert sc.n_clusters == 18_304 > tc.LIB.limit(
+        "tpt_traverse_max_clusters")
+    assert sc.top_min.shape == (572, 3)
+    o, d, tmin, tmax, tocc = room_rays(1 << 16, seed=31)
+    walk_in = walk_in_of(o, d, tmin, tocc if any_hit else tmax)
+    counts = tc.counts_of(o.device).zero_()
+    p = assert_tree_walk_is_plain(sc, walk_in, any_hit)
+    assert float((p >= 0).float().mean()) > (0.1 if any_hit else 0.5)
+    nodes, visits, rays = counts.tolist()
+    assert rays == int((walk_in[3] > walk_in[2]).sum())
+    assert visits >= int((p >= 0).sum()) and nodes < rays * 2_000
+    with pytest.raises(ValueError, match="flat scan stages"):
+        tc.traverse_cuda(*walk_in, *cl.traverse_args(sc),
+                         leaf=sc.leaf_size, tree=False)
+
+
+@pytest.mark.cuda
+def test_tree_walk_matches_plain_on_a_renders_rays():
+    """Every closest-hit and shadow call of a 128x128, 1 spp, 8-bounce
+    render of the capacity scene, recorded through the integrator's
+    hooks, gives the plain walk's bits through the tree walk."""
+    from chip_smoke import recording_hooks
+    from tputracer_torch.integrators.pt import trace_radiance
+
+    need_card()
+    sc = capacity_scene()
+    cfg = RenderConfig(width=128, height=128, spp=1, max_bounces=8,
+                       rr_start=3, chunk_size=1 << 14)
+    closest, shadow, isect, occl = recording_hooks()
+    uid = torch.arange(1 << 14, dtype=torch.int64, device="cuda")
+    trace_radiance(sc, uid, cfg, intersect_fn=isect, occluded_fn=occl)
+    assert len(closest) == 9 and len(shadow) == 8
+    for rays, any_hit in [(r, False) for r in closest] + [
+            (r, True) for r in shadow]:
+        assert_tree_walk_is_plain(sc, walk_in_of(*rays), any_hit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mesh", "deep", "faces", "fallback",
+                                  "hollow"])
+def test_tree_walk_forced_on_small_scenes(case):
+    """Forced by its argument, the tree walk gives the plain walk's bits
+    where the flat scan would run: the mesh cell's subdiv-6 mesh (1,160
+    clusters, 37 nodes) at 2^16 room rays, the hard ray sets (deep soup
+    walks, entries tied at +-0, the pair route's fallback input) and a
+    hollow soup whose rays walk every cluster, refilling their buffers."""
+    import dataclasses
+
+    need_card()
+    if case == "mesh":
+        sc = mesh_scene(subdiv=6, device="cuda")
+        o, d, tmin, tmax, tocc = room_rays(1 << 16, seed=33)
+        cases = [(sc, walk_in_of(o, d, tmin, tmax), False),
+                 (sc, walk_in_of(o, d, tmin, tocc), True)]
+    elif case == "hollow":
+        sc = soup_scene(20_480, seed=21)
+        sc = dataclasses.replace(sc, tri_mask=torch.zeros_like(sc.tri_mask))
+        walk_in = walk_in_of(*soup_rays(2048, seed=22)[:4])
+        cases = [(sc, walk_in, False), (sc, walk_in, True)]
+    else:
+        walk_in, _, _ = walk_case(case)
+        sc = (soup_scene(20_480, seed=21) if case == "deep"
+              else mesh_scene(subdiv=4, device="cuda"))
+        modes = (False,) if case == "fallback" else (False, True)
+        cases = [(sc, walk_in, m) for m in modes]
+    for sc, walk_in, any_hit in cases:
+        p = assert_tree_walk_is_plain(sc, walk_in, any_hit, tree=True)
+        if case != "hollow":
+            assert float((p >= 0).float().mean()) > 0.01
+        else:
+            assert bool((p == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mesh", "hollow", "capacity"])
+def test_tree_walk_counts_what_the_model_counts(case):
+    """The tree walk's counters (boxes slab-tested, clusters visited, live
+    rays walked) over one launch equal the step-by-step model's
+    (tests/toptree_model.py) on the same rays, closest and any hit."""
+    import dataclasses
+
+    from toptree_model import tree_counts
+
+    need_card()
+    if case == "mesh":
+        sc = mesh_scene(subdiv=6, device="cuda")
+        o, d, tmin, tmax, tocc = room_rays(512, seed=35)
+    elif case == "hollow":
+        sc = soup_scene(20_480, seed=21)
+        sc = dataclasses.replace(sc, tri_mask=torch.zeros_like(sc.tri_mask))
+        o, d, tmin, tmax, tocc = soup_rays(48, seed=22)
+    else:
+        sc = capacity_scene()
+        o, d, tmin, tmax, tocc = room_rays(256, seed=35)
+    tables = tuple(x.cpu() for x in cl.traverse_args(sc))
+    for any_hit, far in ((False, tmax), (True, tocc)):
+        walk_in = walk_in_of(o, d, tmin, far)
+        counts = tc.counts_of(o.device).zero_()
+        tc.traverse_cuda(*walk_in, *cl.traverse_args(sc), leaf=sc.leaf_size,
+                         any_hit=any_hit, tree=True)
+        want = tree_counts(tuple(x.cpu() for x in walk_in), tables,
+                           sc.leaf_size, any_hit)
+        assert counts.tolist() == want, (any_hit, want)
+        assert want[2] == int((far > tmin).sum()) and want[1] > 0
+
+
+@pytest.mark.cuda
+def test_mesh_path_keeps_the_flat_scan():
+    """A scene at or under the flat scan's cluster count keeps it: no walk
+    counters zeroed for its render, none added to by its launches, and a
+    mesh render's 2 * bounces + 1 launches a chunk."""
+    need_card()
+    sc = mesh_scene(subdiv=6, device="cuda")
+    assert tc.tree_counts(sc) is None
+    counts = tc.counts_of(sc.device)
+    counts.fill_(7)
+    cfg = RenderConfig(width=32, height=32, spp=4, max_bounces=8,
+                       rr_start=3)
+    launches = LAUNCHES[B2]
+    img, _ = render_pt(sc, cfg)
+    torch.cuda.synchronize()
+    assert LAUNCHES[B2] == launches + 2 * cfg.max_bounces + 1
+    assert counts.tolist() == [7, 7, 7]
+    assert tc.tree_counts(capacity_scene()).tolist() == [0, 0, 0]
+
+
+@pytest.mark.cuda
+def test_graph_capacity_render_counts_its_walk():
+    """The capacity scene through api.render's graph at 64 x 64, 4 spp,
+    8 bounces in 4 chunks: the eager render's image bit for bit on every
+    call, 4 x 17 tree-walk launches a call, and each replay's
+    ``graphs.launch`` record holds the walk's counts (``b2.nodes``,
+    ``b2.visits``, ``b2.rays``, each a one-element list), the eager
+    render's exactly, with far fewer boxes a ray than the flat scan's
+    18,304."""
+    from tputracer_torch import graphs, trace
+    from tputracer_torch.api import render
+
+    need_card()
+    graphs.clear()
+    trace.reset()
+    sc = capacity_scene()
+    cfg = RenderConfig(width=64, height=64, spp=4, max_bounces=8,
+                       rr_start=3, chunk_size=1 << 12)
+    img_e, _ = render_pt(sc, cfg)
+    want = tc.counts_of(sc.device).tolist()
+    assert want[2] > 0
+    for _ in range(4):   # eager, the capture and its replay, a replay
+        launches = LAUNCHES[B2]
+        img, _ = render(sc, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(img, img_e)
+        assert LAUNCHES[B2] == launches + 4 * (2 * cfg.max_bounces + 1)
+    recs = trace.records("graphs.launch")
+    assert len(recs) == 3    # the capture's replay and two more
+    # the records hold float32 copies of the int64 counts
+    want32 = [[x] for x in torch.tensor(want).to(torch.float32).tolist()]
+    for rec in recs:
+        got = [rec.device[k] for k in ("b2.nodes", "b2.visits", "b2.rays")]
+        assert got == want32, (got, want)
+    assert want[0] < 0.1 * 18_304 * want[2]
+    graphs.clear()

@@ -28,7 +28,8 @@ from tputracer_torch.config import BdptConfig, RenderConfig
 from tputracer_torch.integrators import bdpt
 from tputracer_torch.integrators.pt import render_pt
 from tputracer_torch.scene import cornell_box, mesh_scene, scene_from_numpy
-from tputracer_torch.scene.types import CAMERA_FIELDS, TENSOR_FIELDS
+from tputracer_torch.scene.types import (CAMERA_FIELDS, TENSOR_FIELDS,
+                                         TREE_FIELDS)
 
 CFG = RenderConfig(width=24, height=24, spp=4, max_bounces=4, rr_start=2,
                    seed=5)
@@ -125,7 +126,8 @@ def test_copy_in_gives_the_static_scene_the_callers_bits(variant):
     static = graphs.static_like(scene)
     static_off = (torch.empty_like(off),)
     n = graphs.copy_in(static, scene, static_off, (off,))
-    assert n == len(TENSOR_FIELDS) + len(CAMERA_FIELDS) + 1
+    assert n == (len(TENSOR_FIELDS) + len(TREE_FIELDS) + len(CAMERA_FIELDS)
+                 + 1)
     assert (static.n_tris, static.eps, static.leaf_size) == \
         (scene.n_tris, scene.eps, scene.leaf_size)
     for a, b in zip(graphs.scene_tensors(static), graphs.scene_tensors(scene)):

@@ -49,14 +49,18 @@ _BIG = 3.0e38
 def traverse_args(scene):
     """Scene tables in the kernel's layout, detached and contiguous:
     cmin, cmax (C,3); plu (3,6,T), the scene's own layout; trin (T,3);
-    v0n (T,) = v0.n; mask (T,).  Only v0n is computed; the scene's tables
-    are contiguous, so the rest are the scene's own tensors."""
+    v0n (T,) = v0.n; mask (T,); top_min, top_max (G,3), the top level
+    over the cluster boxes (accel.toptree), which only the kernel's tree
+    walk reads.  Only v0n is computed; the scene's tables are contiguous,
+    so the rest are the scene's own tensors."""
     return (scene.clus_min.detach().contiguous(),
             scene.clus_max.detach().contiguous(),
             scene.plu.detach().contiguous(),
             scene.tri_n.detach().contiguous(),
             g.dot(scene.tri_v0, scene.tri_n).detach().contiguous(),
-            scene.tri_mask.detach().contiguous())
+            scene.tri_mask.detach().contiguous(),
+            scene.top_min.detach().contiguous(),
+            scene.top_max.detach().contiguous())
 
 
 def _safe_inv(d):
@@ -112,12 +116,13 @@ def _tri_block(feat, o, d, tmin, best_t, cid, plu, trin, v0n, mask, leaf):
 
 
 def _traverse(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n, mask,
-              leaf, any_hit=False):
+              top_min, top_max, leaf, any_hit=False):
     """Front-to-back cluster walk, the kernel's plain version.
 
     Returns (t (N,) f32, prim (N,) i32): the closest triangle hit with
     tmin < t < bt0 as (t, slot index c*leaf + j), else (bt0, bp0).  Lanes
-    with tmax <= tmin are not walked."""
+    with tmax <= tmin are not walked.  The top level (top_min, top_max)
+    only guides the kernel's tree walk, so this walk does not read it."""
     best_t, best_p = bt0.clone(), bp0.clone()
     te_all = cluster_entries(o, d, tmin, tmax, cmin, cmax)
     c_iota = torch.arange(cmin.shape[0], device=o.device)[None, :]

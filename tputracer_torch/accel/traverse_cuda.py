@@ -12,6 +12,15 @@ The kernel reads the scene's tables in their own layout
 (accel.clustered.traverse_args: Pluecker coordinates as (3, 6, T)), so a
 call copies no table.
 
+The route is by the cluster count alone: up to
+``tpt_traverse_max_clusters()`` clusters (9,685 on Hopper, as many boxes
+as one block's shared memory holds) the kernel scans every cluster box
+(``tpt_traverse``); above it walks the scene's top level first
+(``tpt_traverse_tree``, accel.toptree), with the same (t, prim).  The
+tree walk counts its work into a per-stream device buffer
+(:func:`tree_counts`): the boxes it slab-tests, the clusters it visits
+and the live rays it walks.
+
 Not ported, as TPU workarounds (traverse_tpu.py): the live-first
 compaction ``_compacted_traverse`` (it only permutes rays and undoes the
 permutation, so it changes no (t, prim)), the bf16 slab ``_prep_boxes``
@@ -28,6 +37,7 @@ from tputracer_torch import cuda_build
 from tputracer_torch.accel.clustered import (_traverse, closest_clustered,
                                              intersect_clustered,
                                              occluded_clustered)
+from tputracer_torch.accel.toptree import FANOUT
 from tputracer_torch.cuda_build import Library, check, scratch
 
 _p, _i = ctypes.c_void_p, ctypes.c_int
@@ -39,7 +49,17 @@ LIB = Library("traverse.cu", "tpt_traverse_error_string", {
                       _p, _p, _p, _p,          # plu, trin, v0n, mask
                       _i, _i, _i, _i,          # leaf, n_tri, n_rays, any_hit
                       _p, _p, _p],             # t_out, prim_out, next_ray
-                     ["traverse_kernel"])})
+                     ["traverse_kernel"]),
+    # the tree walk: another instance of the kernel's name
+    "tpt_traverse_tree": ([_p, _p, _p, _p,     # o, d, tmin, tmax
+                           _p, _p,             # bt0, bp0
+                           _p, _p, _i,         # cmin, cmax, n_clusters
+                           _p, _p, _i,         # top_min, top_max, n_nodes
+                           _p, _p, _p, _p,     # plu, trin, v0n, mask
+                           _i, _i, _i, _i,     # leaf, n_tri, n_rays, any_hit
+                           _p, _p, _p,         # t_out, prim_out, next_ray
+                           _p],                # counts
+                          ["traverse_kernel"])})
 
 
 def __getattr__(name):
@@ -49,11 +69,13 @@ def __getattr__(name):
 
 
 def traverse_cuda(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n,
-                  mask, leaf, any_hit=False):
+                  mask, top_min, top_max, leaf, any_hit=False, tree=None):
     """Launch the kernel on CUDA tensors: (t (N,) f32, prim (N,) i32).
 
     Same contract as accel.clustered._traverse; with any_hit, t < tmax is
-    the occlusion verdict and t is the first hit found."""
+    the occlusion verdict and t is the first hit found.  ``tree`` None
+    routes by the cluster count, True takes the tree walk and False the
+    flat scan at any count."""
     dev = o.device
     if dev.type != "cuda":
         raise ValueError(f"traverse_cuda needs CUDA tensors, got {dev}")
@@ -78,24 +100,59 @@ def traverse_cuda(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n,
     prim = torch.empty((n,), dtype=i32, device=dev)
     if n == 0:
         return t, prim
-    max_clusters = LIB.limit("tpt_traverse_max_clusters")
-    if C > max_clusters:
-        raise ValueError(
-            f"{C} clusters: the kernel stages every cluster AABB in one "
-            f"block's shared memory, which holds at most {max_clusters}")
-    # zeroed by tpt_traverse on its stream
+    max_boxes = LIB.limit("tpt_traverse_max_clusters")
+    if tree is None:
+        tree = C > max_boxes
+    # zeroed by tpt_traverse(_tree) on its stream
     next_ray = scratch(who, "ray counter", dev, 1, i32)
-    LIB.launch("tpt_traverse", dev, o, d, tmin, tmax, bt0, bp0, cmin, cmax,
-               C, plu, trin, v0n, mask, leaf, T, n, int(any_hit), t, prim,
-               next_ray)
+    if not tree:
+        if C > max_boxes:
+            raise ValueError(
+                f"{C} clusters: the flat scan stages every cluster box in "
+                f"one block's shared memory, which holds at most "
+                f"{max_boxes}")
+        LIB.launch("tpt_traverse", dev, o, d, tmin, tmax, bt0, bp0, cmin,
+                   cmax, C, plu, trin, v0n, mask, leaf, T, n, int(any_hit),
+                   t, prim, next_ray)
+        return t, prim
+    G = -(-C // FANOUT)
+    check(who, "top_min", top_min, f32, (G, 3), dev)
+    check(who, "top_max", top_max, f32, (G, 3), dev)
+    if G > max_boxes:
+        raise ValueError(
+            f"{C} clusters: the tree walk stages its {G} top node boxes in "
+            f"one block's shared memory, which holds at most {max_boxes}")
+    LIB.launch("tpt_traverse_tree", dev, o, d, tmin, tmax, bt0, bp0, cmin,
+               cmax, C, top_min, top_max, G, plu, trin, v0n, mask, leaf, T,
+               n, int(any_hit), t, prim, next_ray, counts_of(dev))
     return t, prim
 
 
+def counts_of(device):
+    """The tree walk's counters of ``device``'s current stream: (3,) int64
+    on the device, the boxes slab-tested, the clusters visited and the
+    live rays walked, summed over every launch since they were zeroed."""
+    return scratch("traverse_cuda", "walk counts", device, 3, torch.int64,
+                   fill=0)
+
+
+def tree_counts(scene):
+    """:func:`counts_of` the scene's device, zeroed (on its current stream,
+    so inside a graph's capture at each replay), where a walk of ``scene``
+    on its device is the tree walk; else None."""
+    dev = scene.device
+    if (dev.type != "cuda" or not scene.n_clusters or scene.n_clusters
+            <= LIB.limit("tpt_traverse_max_clusters")):
+        return None
+    return counts_of(dev).zero_()
+
+
 def traverse(o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n, mask,
-             leaf, any_hit=False):
+             top_min, top_max, leaf, any_hit=False):
     """The kernel on a CUDA tensor, the plain version on a CPU tensor.
     Tables as accel.clustered.traverse_args gives them."""
-    args = (o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n, mask)
+    args = (o, d, tmin, tmax, bt0, bp0, cmin, cmax, plu, trin, v0n, mask,
+            top_min, top_max)
     if o.device.type == "cuda":
         return traverse_cuda(*args, leaf=leaf, any_hit=any_hit)
     if o.device.type == "cpu":

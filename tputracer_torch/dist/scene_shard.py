@@ -34,6 +34,7 @@ from tputracer_torch import geometry as g
 from tputracer_torch.accel.bruteforce import Hit
 from tputracer_torch.accel.clustered import _sphere_best, traverse_args
 from tputracer_torch.accel.intersect_cuda import _rays
+from tputracer_torch.accel.toptree import top_boxes
 from tputracer_torch.dist.mesh import (_bdpt_rows, _pt_rows, fit_step_rows,
                                        gather_image, pack, ring_shift,
                                        sum_stats, unpack)
@@ -67,14 +68,22 @@ def pad_scene_clusters(scene, n_shards):
     return dataclasses.replace(
         scene, **kw,
         plu=torch.cat([scene.plu, scene.plu.new_zeros((3, 6, padt))], dim=2),
-        clus_min=rows(scene.clus_min, padc, _BIG),
-        clus_max=rows(scene.clus_max, padc, _BIG))
+        **_boxes(rows(scene.clus_min, padc, _BIG),
+                 rows(scene.clus_max, padc, _BIG)))
+
+
+def _boxes(cmin, cmax):
+    """The Scene fields of these cluster boxes and of their top level."""
+    top_min, top_max = top_boxes(cmin, cmax)
+    return dict(clus_min=cmin, clus_max=cmax, top_min=top_min,
+                top_max=top_max)
 
 
 def shard_scene(scene, rank, n_shards):
     """Rank ``rank``'s tile of a scene whose cluster count divides
     n_shards (:func:`pad_scene_clusters`): its C/P clusters' triangle
-    slots, Pluecker columns and boxes; every other field whole.  Slices
+    slots, Pluecker columns and boxes, and the top level over those
+    boxes; every other field whole.  Slices
     of the given tensors: ``.to(device)`` moves only the tile."""
     Cl = scene.n_clusters // n_shards
     if Cl * n_shards != scene.n_clusters:
@@ -85,7 +94,7 @@ def shard_scene(scene, rank, n_shards):
     kw = {f: getattr(scene, f)[t0:t1] for f in TRI_FIELDS}
     return dataclasses.replace(
         scene, **kw, plu=scene.plu[:, :, t0:t1].contiguous(),
-        clus_min=scene.clus_min[c0:c1], clus_max=scene.clus_max[c0:c1])
+        **_boxes(scene.clus_min[c0:c1], scene.clus_max[c0:c1]))
 
 
 def geometry_bytes(scene):

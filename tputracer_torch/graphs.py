@@ -75,7 +75,8 @@ import torch
 
 from tputracer_torch import cuda_build
 from tputracer_torch.accel import _use_pairs
-from tputracer_torch.scene.types import CAMERA_FIELDS, TENSOR_FIELDS, Camera
+from tputracer_torch.scene.types import (CAMERA_FIELDS, TENSOR_FIELDS,
+                                         TREE_FIELDS, Camera)
 from tputracer_torch.trace import (SETTLERS, capturing, count_values,
                                    counting, phase_ms, span)
 
@@ -94,9 +95,9 @@ _POOLS: dict = {}
 
 
 def scene_tensors(scene):
-    """The scene's tensors in a fixed order: TENSOR_FIELDS, then the
-    camera's CAMERA_FIELDS."""
-    return ([getattr(scene, f) for f in TENSOR_FIELDS]
+    """The scene's tensors in a fixed order: TENSOR_FIELDS, TREE_FIELDS,
+    then the camera's CAMERA_FIELDS."""
+    return ([getattr(scene, f) for f in TENSOR_FIELDS + TREE_FIELDS]
             + [getattr(scene.camera, f) for f in CAMERA_FIELDS])
 
 
@@ -115,7 +116,8 @@ def graph_key(name, static, scene, inputs=()):
 
 def static_like(scene):
     """A Scene with fresh, uninitialized tensors of ``scene``'s layout."""
-    kw = {f: torch.empty_like(getattr(scene, f)) for f in TENSOR_FIELDS}
+    kw = {f: torch.empty_like(getattr(scene, f))
+          for f in TENSOR_FIELDS + TREE_FIELDS}
     camera = Camera(*(torch.empty_like(getattr(scene.camera, f))
                       for f in CAMERA_FIELDS))
     return dataclasses.replace(scene, camera=camera, **kw)

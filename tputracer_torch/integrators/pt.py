@@ -28,7 +28,11 @@ capture a stretch that each replay times on the device, each bounce
 opening on the event that closed the one before.  A chunked call
 hands the capture its closest-hit rays per bounce, summed over the
 chunks, as the count ``pt.live`` and its path count as ``pt.lanes``
-(``trace.device_count``), which each replay's record then reads.  Each
+(``trace.device_count``), which each replay's record then reads; where
+the closest hits take B2's tree walk (a scene past the flat scan's
+cluster count), also the walk's counts ``b2.nodes`` (boxes slab-tested),
+``b2.visits`` (clusters visited) and ``b2.rays`` (live rays walked),
+summed over the call's launches.  Each
 bounce's record counts ``kernel``: 1 on the kernels' route, 0 on the
 torch route.
 """
@@ -42,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tputracer_torch import geometry as g
 from tputracer_torch import rng
-from tputracer_torch.accel import intersect, occluded
+from tputracer_torch.accel import intersect, occluded, traverse_cuda
 from tputracer_torch.bsdf import (emitted, eval_bsdf, nee_nonspecular,
                                   pdf_bsdf, sample_bsdf)
 from tputracer_torch.integrators import pt_cuda
@@ -311,6 +315,9 @@ def trace_chunked(scene, uids, cfg, decision_scene=None,
     n_chunks = -(-n // chunk)
     if n_chunks * chunk != n:
         raise ValueError(f"{n} paths do not split into chunks of {chunk}")
+    # the tree walk's counters (accel.traverse_cuda), zeroed for this call
+    walk = (traverse_cuda.tree_counts(scene)
+            if intersect_fn is None and occluded_fn is None else None)
     Ls = []
     stats = None
     for i in range(n_chunks):
@@ -322,6 +329,9 @@ def trace_chunked(scene, uids, cfg, decision_scene=None,
         stats = st if stats is None else {k: stats[k] + st[k] for k in st}
     device_count("pt.live", stats["rays_closest"])
     device_count("pt.lanes", n)
+    if walk is not None:
+        for k, name in enumerate(("b2.nodes", "b2.visits", "b2.rays")):
+            device_count(name, walk[k])
     return torch.cat(Ls, dim=0), stats
 
 

@@ -19,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tputracer_torch.accel.toptree import top_boxes
 from tputracer_torch.trace import span, spanned
 
 # material kinds
@@ -78,6 +79,11 @@ class Scene:
     # [c*leaf_size, (c+1)*leaf_size).
     clus_min: torch.Tensor  # (C,3)
     clus_max: torch.Tensor  # (C,3)
+    # its top level (accel.toptree, the port's own): one box over each run
+    # of toptree.FANOUT clusters, which kernel B2 walks first where the
+    # cluster boxes outgrow its shared memory
+    top_min: torch.Tensor   # (G,3)
+    top_max: torch.Tensor   # (G,3)
 
     camera: Camera
 
@@ -107,15 +113,18 @@ class Scene:
 
     def to(self, device):
         """The same scene with every tensor on ``device``."""
-        kw = {f.name: getattr(self, f.name).to(device)
-              for f in dataclasses.fields(self) if f.name in TENSOR_FIELDS}
+        kw = {f: getattr(self, f).to(device)
+              for f in TENSOR_FIELDS + TREE_FIELDS}
         return dataclasses.replace(self, camera=self.camera.to(device), **kw)
 
 
-# the Scene fields that hold tensors (the camera and the statics aside)
+# the port's own Scene tensors, computed from the cluster boxes
+TREE_FIELDS = ("top_min", "top_max")
+# the Scene fields that hold tensors (the camera, the statics and
+# TREE_FIELDS aside): the JAX package's Scene leaves
 TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(Scene)
                       if f.name not in ("camera", "n_tris", "eps",
-                                        "leaf_size"))
+                                        "leaf_size") + TREE_FIELDS)
 CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
 
 
@@ -194,7 +203,9 @@ def make_scene(
 
         with span("scene.bvh") as rec:
             perm, mask, cmin, cmax = build_clusters(tv, leaf_size=leaf_size)
-            rec.add(clusters=len(cmin))
+            top = [x.numpy() for x in top_boxes(torch.from_numpy(cmin),
+                                                torch.from_numpy(cmax))]
+            rec.add(clusters=len(cmin), top_nodes=len(top[0]))
         # padding slots repeat triangle 0; zero their geometry so they are
         # degenerate (never intersected) and point them at material 0
         v0 = tv[perm, 0] * mask[:, None]
@@ -215,6 +226,7 @@ def make_scene(
         mask[:T] = 1.0
         cmin = np.zeros((0, 3), np.float32)
         cmax = np.zeros((0, 3), np.float32)
+        top = [cmin, cmax]
 
     e1 = v1 - v0
     e2 = v2 - v0
@@ -250,7 +262,7 @@ def make_scene(
         emit_prim=emit_ids, emit_area=areas, emit_v0=v0[emit_ids],
         emit_e1=e1[emit_ids], emit_e2=e2[emit_ids], emit_n=emit_n,
         emit_mat=mat[emit_ids],
-        clus_min=cmin, clus_max=cmax,
+        clus_min=cmin, clus_max=cmax, top_min=top[0], top_max=top[1],
     )
     if camera is not None:
         arrays["camera"] = {k: getattr(camera, k).cpu().numpy()
@@ -262,18 +274,23 @@ def make_scene(
 def scene_from_numpy(arrays, *, n_tris, eps, leaf_size, device):
     """Build a Scene from host arrays keyed by field name.
 
-    ``arrays`` maps every tensor field of :class:`Scene` to an array, and
+    ``arrays`` maps every name of TENSOR_FIELDS to an array, and
     ``"camera"`` to a dict of the four :class:`Camera` arrays (or None).
     This is how a scene crosses from the JAX package: pass the ``np.asarray``
     of each of its leaves, and both packages see byte-identical geometry.
     Integer fields become int32 and float fields float32, as in the JAX
-    package (which downcasts float64 host values the same way).
+    package (which downcasts float64 host values the same way).  The
+    port's own TREE_FIELDS are taken from ``arrays`` where it has them,
+    else computed from the cluster boxes (``accel.toptree.top_boxes``).
     """
     kw = {}
-    for name in TENSOR_FIELDS:
+    for name in TENSOR_FIELDS + tuple(f for f in TREE_FIELDS if f in arrays):
         a = np.asarray(arrays[name])
         dtype = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
         kw[name] = _tensor(a, dtype, device)
+    if not all(name in kw for name in TREE_FIELDS):
+        kw["top_min"], kw["top_max"] = top_boxes(kw["clus_min"],
+                                                 kw["clus_max"])
     cam = arrays.get("camera")
     camera = None if cam is None else Camera(
         *(_tensor(cam[k], np.float32, device) for k in CAMERA_FIELDS))
