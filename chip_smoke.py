@@ -6,7 +6,7 @@
 Run from the root of a checkout.  Phases, each printing one line:
 
   1. device: needs torch.cuda; prints the card's name and power limit.
-  2. build: compiles the six sources of tputracer_torch/csrc/ (one nvcc
+  2. build: compiles the seven sources of tputracer_torch/csrc/ (one nvcc
      per source, started together) and builds the config-3 mesh scene on
      the card, saying which BVH builder (native or NumPy) ran.
   3. kernel: the intersection kernel against its plain PyTorch version,
@@ -232,6 +232,21 @@ Run from the root of a checkout.  Phases, each printing one line:
      (te, c) order does on those rays (perfbench/visit_bound.visit_work:
      a slab test of each cluster entered before the final hit, the slots'
      tests, each visited cluster's bytes once).
+ 22. walk: BDPT's walk kernel (csrc/walk.cu, bdpt_cuda.walk_cuda) against
+     _walk_plain, both walks of a chunk of 2^20 paths of the caustics box
+     at 4 bounces and of a 2^16-path chunk of config 3's mesh through B2,
+     the card's intersector on both sides (walk_bits: every field of
+     every vertex bit for bit on the lanes valid there, valid, delta,
+     pdf_fwd, pdf_rev, mat and prim on every lane, rays_closest bit for
+     bit; the largest difference seen is the kernels line's max_abs_err);
+     trace_bdpt's L_own and ray counts on that chunk bit for bit between
+     the kernel's walks and the torch walks (the walk phases counting
+     kernel 1 and 0); the eye walk timed inside a CUDA graph, its closest
+     hits given, beside the bytes its vertices' lanes need
+     (walk_bytes_per_lane of each vertex's own counts) and _walk_plain's;
+     then the benchmark's frame (512x512, 16 spp, chunks of 2^20) through
+     api.render_bdpt (eager, capture, replay): 40 walk launches a call,
+     the graph holding 40 walk kernels.
 
 Phases 4, 7, 10, 12, 13 and 16 go through the same entry points, whose
 first call of a key runs eagerly, so their counted calls are eager ones;
@@ -425,12 +440,12 @@ def phase_build():
     from tputracer_torch.integrators import bdpt_cuda, pt_cuda
     from tputracer_torch.scene import mesh_scene
 
-    sources = ("intersect.cu", "traverse.cu", "pairs.cu", "rng.cu",
-               "connect.cu", "pt.cu")
+    libs = (ic.LIB, tc.LIB, pc.LIB, rng.LIB, bdpt_cuda.LIB, pt_cuda.LIB,
+            bdpt_cuda.WALK_LIB)
+    sources = tuple(lib.source for lib in libs)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:     # one nvcc per source, together
-        for job in [pool.submit(m.LIB.load)
-                    for m in (ic, tc, pc, rng, bdpt_cuda, pt_cuda)]:
+    with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
+        for job in [pool.submit(lib.load) for lib in libs]:
             job.result()
     nvcc_s = time.perf_counter() - t0
     ptxas = {src: [ln.strip() for ln in
@@ -3601,6 +3616,23 @@ def ulps(a, b):
                 - b.view(torch.int32).long()).abs().max())
 
 
+def bits_err(who, name, g, w, where):
+    """The largest |g - w| of two tensors that must be equal bit for bit
+    (0 for other dtypes); raises with it, the lanes that differ and their
+    distance in ulps, if they are not."""
+    err = 0.0
+    if g.dtype == torch.float32 and g.numel():
+        err = float(torch.where(g == w, 0.0, (g - w).abs()).max())
+    if not torch.equal(g, w):
+        lanes = int((g != w).reshape(g.shape[0], -1).any(1).sum()
+                    if g.dim() else 1)
+        far = (f"{ulps(g, w)} ulps, max abs err {err}"
+               if g.dtype == torch.float32 else "")
+        raise SmokeFailure(f"{who}: {name} differs on {lanes} lanes ({far}) "
+                           f"at {where}")
+    return err
+
+
 def pt_bounce_bits(sc, cfg, n, offset=0):
     """Each bounce of a chunk of n paths through the kernels
     (pt_cuda.bounce_cuda) and through _bounce_step_plain from the same
@@ -3623,16 +3655,7 @@ def pt_bounce_bits(sc, cfg, n, offset=0):
 
     def compare(name, g, w, where):
         nonlocal err
-        if g.dtype == torch.float32:
-            diff = torch.where(g == w, 0.0, (g - w).abs())
-            err = max(err, float(diff.max()) if g.numel() else 0.0)
-        if not torch.equal(g, w):
-            lanes = int((g != w).reshape(g.shape[0], -1).any(1).sum()
-                        if g.dim() else 1)
-            far = (f"{ulps(g, w)} ulps, max abs err {err}"
-                   if g.dtype == torch.float32 else "")
-            raise SmokeFailure(f"pt: {name} differs on {lanes} lanes "
-                               f"({far}) at {where}")
+        err = max(err, bits_err("pt", name, g, w, where))
 
     with torch.no_grad():
         for b in range(cfg.max_bounces + 1):
@@ -3891,6 +3914,243 @@ def phase_capacity():
     return times, res
 
 
+# ---- phase 22: BDPT's walk kernel (csrc/walk.cu) ----------------------------
+
+# the bytes each class of lane needs in the walk kernel of one vertex,
+# every array read or written counted once (the scene's tables stay in
+# cache and are not counted):
+#   dead, a lane dead at the vertex's start: reads alive 1 and writes
+#     pdf_fwd, pdf_rev, mat and prim 4 each, delta and valid 1 each, and
+#     zeros into p, ng and wo, 12 each; on all but the walk's last vertex
+#     also zeros into the next beta, 12 (dead_next)
+#   miss, alive and hitting nothing: reads alive 1, t 4 and writes those
+#     54; on all but the walk's last vertex also alive 1, tmax 4 and the
+#     next beta 12 (miss_next)
+#   hit, a valid vertex: reads alive 1, t 4, prim 4, o 12, d 12, the
+#     previous point 12, pdf_sa 4 and writes p, ng and wo 12 each and the
+#     18; on all but the last vertex (hit_next) also reads uid 8, beta 12
+#     and writes the next beta, o and d 12 each, pdf_sa 4, alive 1, tmax
+#     4, and with a previous vertex (hit_prev) reads its normal 12 and
+#     writes its pdf_rev 4
+WALK_LANE_BYTES = dict(dead=1 + 54, dead_next=12, miss=5 + 54,
+                       miss_next=5 + 12, hit=49 + 54, hit_next=20 + 45,
+                       hit_prev=12 + 4)
+# the fields the kernel gives the torch version's bits on every lane
+WALK_EVERY_LANE = ("valid", "delta", "pdf_fwd", "pdf_rev", "mat", "prim")
+
+
+def walk_bytes_per_lane(last, has_prev):
+    """The bytes a lane of each class (dead, miss, hit) needs in one walk
+    kernel launch (WALK_LANE_BYTES): of the walk's last vertex or not, and
+    with a previous vertex whose pdf_rev it writes or not."""
+    b = WALK_LANE_BYTES
+    hit = b["hit"]
+    if not last:
+        hit += b["hit_next"] + (b["hit_prev"] if has_prev else 0)
+    return {"dead": b["dead"] + (0 if last else b["dead_next"]),
+            "miss": b["miss"] + (0 if last else b["miss_next"]), "hit": hit}
+
+
+def walk_launches():
+    """cuda_build's launch count of the walk kernel."""
+    from tputracer_torch.cuda_build import LAUNCHES
+
+    return LAUNCHES["walk_kernel"]
+
+
+def walk_bits(sc, cfg, n, offset=0):
+    """Both walks of a chunk of n paths from uid ``offset``, by
+    eye_subpaths and light_subpaths on the card, through the walk kernel
+    (the default intersector) and through _walk_plain (the card's
+    intersector, accel.intersect, injected): every field of every vertex
+    bit for bit on the lanes valid there, valid, delta, pdf_fwd, pdf_rev,
+    mat and prim on every lane, beta on the lanes valid at the vertex
+    before (every lane at the first), zeros in p, ng, wo and beta on the
+    lanes those leave out, the camera vertex and the light's y0 whole,
+    and rays_closest bit for bit; one launch a vertex.  Returns
+    the valid lanes at each vertex of each walk and the largest |kernel -
+    plain| over every float32 value compared; raises on any differing
+    bit, with that difference."""
+    from tputracer_torch.accel import intersect
+    from tputracer_torch.integrators import bdpt
+
+    uid = torch.arange(offset, offset + n, dtype=torch.int64, device="cuda")
+    live, err = {}, 0.0
+    with torch.no_grad():
+        for walk, subpaths in (("eye", bdpt.eye_subpaths),
+                               ("light", bdpt.light_subpaths)):
+            got, want = {}, {}
+            before = walk_launches()
+            ks = subpaths(sc, uid, cfg, stats_acc=got)
+            ps = subpaths(sc, uid, cfg, isect=intersect, stats_acc=want)
+            torch.cuda.synchronize()
+            check(walk_launches() == before + cfg.max_bounces + 1,
+                  f"walk: {walk_launches() - before} launches for the "
+                  f"{walk} walk")
+            for v, (k, p) in enumerate(zip(ks, ps)):
+                where = f"the {walk} walk's vertex {v}, {n} lanes, {cfg}"
+                check(k.keys() == p.keys(), f"walk: fields {list(k)} at "
+                                            f"{where}")
+                for f in p:
+                    on = (slice(None) if v == 0 or f in WALK_EVERY_LANE
+                          else p["valid"])
+                    if f == "beta":   # the kernel computes it off a valid
+                        on = slice(None) if v <= 1 else ps[v - 1]["valid"]
+                    err = max(err, bits_err("walk", f, k[f][on], p[f][on],
+                                            where))
+                    if not isinstance(on, slice):   # zeros everywhere else
+                        off = k[f][~on]
+                        err = max(err, bits_err("walk", f"{f} off its lanes",
+                                                off, torch.zeros_like(off),
+                                                where))
+            err = max(err, bits_err("walk", "rays_closest",
+                                    got["rays_closest"],
+                                    want["rays_closest"], f"the {walk} walk"))
+            live[walk] = [int(v["valid"].sum()) for v in ps[1:]]
+    return live, err
+
+
+def walk_times(sc, cfg, n):
+    """The eye walk of a chunk of n paths, its closest hits given (recorded
+    from a first walk): the kernel route (bdpt_cuda.walk_cuda, less the
+    copies that put its in-place carry back before each call) and
+    _walk_plain, each inside a CUDA graph (graph_ms), beside their bound:
+    the bytes each vertex's lanes need (walk_bytes_per_lane of its own
+    counts), summed over the walk's vertices."""
+    from tputracer_torch import rng
+    from tputracer_torch.accel import closest, finalize_hit
+    from tputracer_torch.integrators import bdpt, bdpt_cuda
+    from tputracer_torch.integrators.pt import camera_rays
+
+    uid = torch.arange(n, dtype=torch.int64, device="cuda")
+    n_verts = cfg.max_bounces + 1
+    with torch.no_grad():
+        o, d = camera_rays(sc, uid, cfg)
+        o = o.contiguous()
+        pdf = bdpt._camera_pdf_sa(sc.camera, d)
+        beta = torch.ones((n, 3), dtype=torch.float32, device="cuda")
+        work = [o.clone(), d.clone(), pdf.clone()]
+        hits = []
+
+        def recording(*args):
+            hits.append(closest(*args))
+            return hits[-1]
+
+        def walk_args(carry):
+            return (sc, carry[0], carry[1], beta, carry[2], uid, cfg, n_verts,
+                    rng.SLOT_BSDF, None, True)
+
+        verts = bdpt_cuda.walk_cuda(*walk_args(work), closest=recording)
+
+        def restore():
+            for dst, src in zip(work, (o, d, pdf)):
+                dst.copy_(src)
+
+        def kernels():
+            restore()
+            given = iter(hits)
+            bdpt_cuda.walk_cuda(*walk_args(work),
+                                closest=lambda *a: next(given))
+
+        def plain():
+            given = iter(hits)
+
+            def isect(s, o_, d_, tmin, tmax):
+                t, prim = next(given)
+                return finalize_hit(s, o_, d_, t, prim, t < tmax)
+
+            bdpt._walk_plain(*walk_args((o, d, pdf)), isect=isect)
+
+        nbytes, issued, valid = 0, n, []
+        for i, v in enumerate(verts):
+            ok = int(v["valid"].sum())
+            per = walk_bytes_per_lane(i == n_verts - 1, i > 0)
+            nbytes += ((n - issued) * per["dead"] + (issued - ok) * per["miss"]
+                       + ok * per["hit"])
+            valid.append(ok)
+            if i + 1 < n_verts:
+                issued = int((v["valid"]
+                              & (verts[i + 1]["beta"].amax(-1) > 0.0)).sum())
+        bound_ms, bound_by = bound(0, nbytes)
+        restore_ms = graph_ms(restore)
+        walk_ms = graph_ms(kernels) - restore_ms
+        return dict(lanes=n, verts=n_verts, valid=valid, bytes=nbytes,
+                    bytes_per_valid_vertex=nbytes / sum(valid),
+                    bound_ms=bound_ms, bound_by=bound_by, graph_ms=walk_ms,
+                    vertex_graph_ms=walk_ms / n_verts,
+                    restore_graph_ms=restore_ms,
+                    plain_graph_ms=graph_ms(plain, reps=2))
+
+
+def phase_walk(mesh):
+    """Phase 22: BDPT's walk kernel against _walk_plain on a caustic chunk
+    and a mesh chunk, trace_bdpt's L_own on both walk routes, timed, and
+    the benchmark's frame graphed."""
+    from tputracer_torch import graphs, trace
+    from tputracer_torch.accel import intersect
+    from tputracer_torch.api import render_bdpt
+    from tputracer_torch.config import BdptConfig
+    from tputracer_torch.integrators import bdpt
+    from tputracer_torch.scene import cornell_box
+
+    t0 = time.perf_counter()
+    sc = cornell_box("caustic", device="cuda")
+    n = 1 << 20
+    cfg = BdptConfig(width=1024, height=1024, spp=1, max_bounces=4,
+                     chunk_size=n)
+    m_cfg = BdptConfig(width=256, height=256, spp=1, max_bounces=4,
+                       chunk_size=1 << 16)
+    bits = {"caustic": walk_bits(sc, cfg, n),
+            "mesh": walk_bits(mesh, m_cfg, 1 << 16)}
+    max_abs = max(err for _, err in bits.values())
+
+    # the whole chunk: L_own and the ray counts bit for bit on both walk
+    # routes, the walk phases counting the route
+    uid = torch.arange(n, dtype=torch.int64, device="cuda")
+    kernel_counts = []
+    with torch.no_grad():
+        outs = []
+        for isect in (None, intersect):
+            trace.reset()
+            outs.append(bdpt.trace_bdpt(sc, uid, cfg, intersect_fn=isect))
+            kernel_counts.append([trace.records(f"bdpt.{w}_walk")[-1].counts[
+                "kernel"] for w in ("eye", "light")])
+        trace.reset()
+    (L_k, _, st_k), (L_p, _, st_p) = outs
+    check(kernel_counts == [[1, 1], [0, 0]],
+          f"walk: the walk phases count kernel {kernel_counts}")
+    check(torch.equal(L_k, L_p), "walk: L_own differs between the walk "
+                                 "routes")
+    check(all(torch.equal(st_k[k], st_p[k]) for k in st_p),
+          "walk: the ray counts differ between the walk routes")
+    del outs, L_k, L_p
+    times = walk_times(sc, cfg, n)
+    emit("walk", valid_at_each_vertex={k: v[0] for k, v in bits.items()},
+         max_abs_err=max_abs, **times)
+
+    frame = BdptConfig(width=512, height=512, spp=16, max_bounces=4,
+                       chunk_size=n)
+    graphs.clear()
+    launches = []
+    for _ in range(3):   # eager, the capture, a replay
+        before = walk_launches()
+        render_bdpt(sc, frame)
+        torch.cuda.synchronize()
+        launches.append(walk_launches() - before)
+    census = graphs.graphs()[0].census
+    want = 4 * 2 * (frame.max_bounces + 1)
+    check(launches == [want] * 3, f"walk: launches {launches} a frame, "
+                                  f"want {want}")
+    check(census["walk_kernel"] == want,
+          f"walk: the frame's graph holds {census['walk_kernel']}")
+    graphs.clear()
+    res = dict(frame_launches=launches, graph_nodes=census["walk_kernel"],
+               kernel_nodes=census["kernel_nodes"], max_abs_err=max_abs,
+               seconds=time.perf_counter() - t0)
+    emit("walk", **res)
+    return times, res
+
+
 def main():
     start = time.perf_counter()
     phase_device()
@@ -3926,6 +4186,8 @@ def main():
     pt_t, pt_res = phase_pt(mesh)
     free_graphs()
     cap_t, cap_res = phase_capacity()
+    free_graphs()
+    walk_t, walk_res = phase_walk(mesh)
     emit("total", seconds=time.perf_counter() - start)
     main_case = results[0]   # boxes, closest hit: the main path's shape
     # random rays, closest hit: the shape of most of a render's calls
@@ -4057,6 +4319,18 @@ def main():
         "max_abs_err": cap_res["max_abs_err"],
         **{k: cap_t[k] for k in ("lanes", "ms", "device_ms", "graph_ms",
                                  "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+    }, {
+        "name": "walk",
+        "route": "cuda",
+        "source": "tputracer_torch/csrc/walk.cu",
+        "replaces": None,    # no Pallas counterpart: XLA fuses the walk
+        # the walk kernel's launches over a replay of the frame
+        "launches": walk_res["frame_launches"][-1],
+        "max_abs_err": walk_res["max_abs_err"],
+        **{k: walk_t[k] for k in ("lanes", "verts", "graph_ms",
+                                  "vertex_graph_ms", "plain_graph_ms",
+                                  "bound_ms", "bound_by")},
         "library_ms": None,
     }]}), flush=True)
     print(card_line(), flush=True)

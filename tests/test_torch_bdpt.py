@@ -21,6 +21,9 @@ its brute force there, as the port's does.
   ray counts and splat energy at rtol 1e-3.  On the CPU index_add_ adds in
   order; on the card it adds in no fixed order, so the card tests hold the
   splat at float tolerance and L_own bit for bit.
+* The JAX frames stored for the card's kernel route
+  (tests/golden/bdpt_jax_frames.py) against a fresh JAX render, at the
+  same tolerances.
 * The port alone: chunk invariance, a t=1 splat from a vertex almost in
   the camera's plane (no cast may wrap onto the film), and BDPT against
   the port's own PT on the caustics scene.
@@ -31,6 +34,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from golden import bdpt_jax_frames
 from golden.test_bdpt_mis_weights import _build_vertex_lists, _make_paths
 from test_torch_intersect import sphere_t_bound
 from test_torch_pt import golden_compare
@@ -326,6 +330,20 @@ def test_render_bdpt_matches_jax(variant, kw, port_chunk):
     for k in ("rays_closest", "rays_shadow", "splat_energy"):
         np.testing.assert_allclose(float(st_t[k]), float(st_j[k]), rtol=1e-3,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("name", list(bdpt_jax_frames.FRAMES))
+def test_stored_jax_frames_are_jax_renders(name):
+    """The frames the card's BDPT kernel route is held to
+    (tests/golden/bdpt_jax_frames.npz) are JAX's render_bdpt of their
+    settings now: image at the golden tolerances, ray counts and splat
+    energy at rtol 1e-3."""
+    img_s, st_s = bdpt_jax_frames.stored(name)
+    img_j, st_j = bdpt_jax_frames.jax_frame(name)
+    assert img_s.shape == img_j.shape and img_s.dtype == np.float32
+    golden_compare(img_s, img_j)
+    for k in bdpt_jax_frames.STATS:
+        np.testing.assert_allclose(st_s[k], st_j[k], rtol=1e-3, err_msg=k)
 
 
 def test_bdpt_deterministic_and_chunk_invariant():

@@ -44,10 +44,11 @@ def test_an_eager_render_records_each_phase_once_a_chunk():
     chunks = SMALL.width * SMALL.height * SMALL.spp // SMALL.chunk_size
     assert chunks == 3
     V = SMALL.max_bounces + 2
-    counts = {"bdpt.eye_walk": {"verts": V}, "bdpt.light_walk": {"verts": V},
+    # on the CPU the torch routes: kernel 0
+    counts = {"bdpt.eye_walk": {"verts": V, "kernel": 0},
+              "bdpt.light_walk": {"verts": V, "kernel": 0},
               "bdpt.s0": {},
               # t = 2..V with s = 1..V - t: 4 + 3 + 2 + 1
-              # on the CPU the torch routes: kernel 0
               "bdpt.connect": {"strategies": 10, "kernel": 0},
               "bdpt.splat": {"strategies": V - 1, "kernel": 0}}
     recs = {name: trace.records(name) for name in PHASES}

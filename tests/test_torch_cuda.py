@@ -1893,3 +1893,219 @@ def test_graph_capacity_render_counts_its_walk():
         assert got == want32, (got, want)
     assert want[0] < 0.1 * 18_304 * want[2]
     graphs.clear()
+
+
+# ---- BDPT's walk kernel (csrc/walk.cu) --------------------------------------
+
+# (scene, mis_power) at 24^2 / 4 spp, 4 bounces: the caustic box (its glass
+# sphere refracts in both transport modes), config 2's mirror and glass
+# spheres, a clustered mesh whose walks go through the traversal kernel
+WALK_CASES = [(name, power) for name in ("caustic", "spheres", "mesh")
+              for power in (False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WALK_CASES,
+                         ids=[f"{n}-{'power' if p else 'balance'}"
+                              for n, p in WALK_CASES])
+def test_walk_kernel_matches_plain(case):
+    """Both walks through the walk kernel give _walk_plain's vertices
+    through the card's own intersector (chip_smoke.walk_bits: every field
+    on the lanes valid at a vertex; valid, delta, pdf_fwd, pdf_rev, mat
+    and prim on every lane; rays_closest; one launch a vertex), and
+    trace_bdpt's per-path radiance and ray counts on the kernel's walks
+    equal those on the torch walks bit for bit; nothing on the kernel's
+    route waits on the card."""
+    from chip_smoke import walk_bits
+    from tputracer_torch.accel import intersect
+    from tputracer_torch.integrators.bdpt import trace_bdpt
+
+    need_card()
+    name, power = case
+    sc = pt_scene(name)
+    cfg = BdptConfig(width=24, height=24, spp=4, max_bounces=4,
+                     mis_power=power)
+    n = cfg.width * cfg.height * cfg.spp
+    live, err = walk_bits(sc, cfg, n)
+    assert live["eye"][0] > 0 and live["light"][0] > 0 and err == 0.0
+    uid = torch.arange(n, dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            L_k, _, st_k = trace_bdpt(sc, uid, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        L_p, _, st_p = trace_bdpt(sc, uid, cfg, intersect_fn=intersect)
+    assert torch.equal(L_k, L_p) and float(L_k.sum()) > 0.0
+    assert all(torch.equal(st_k[k], st_p[k]) for k in st_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["caustic", "caustic_mis_power"])
+def test_bdpt_kernel_route_matches_jax_frame(name):
+    """api.render_bdpt of config 4's caustic box on the card, its walks,
+    connections and splats through their kernels on the card's own
+    intersector, against the JAX package's render_bdpt of the same
+    settings (stored on the CPU: tests/golden/bdpt_jax_frames.py) at
+    tests/test_torch_bdpt.py's tolerances: the image at the golden
+    tolerances, ray counts and splat energy at rtol 1e-3."""
+    from golden.bdpt_jax_frames import FRAMES, STATS, stored
+    from golden.tolerance import golden_compare
+
+    need_card()
+    kinds = ("walk_kernel", "connect_finish_kernel", "splat_finish_kernel")
+    before = {k: LAUNCHES[k] for k in kinds}
+    img, st = render_bdpt(cornell_box("caustic", device="cuda"),
+                          BdptConfig(**FRAMES[name]))
+    torch.cuda.synchronize()
+    assert all(LAUNCHES[k] > before[k] for k in kinds), kinds
+    img_j, st_j = stored(name)
+    golden_compare(img.cpu().numpy(), img_j)
+    for k in STATS:
+        np.testing.assert_allclose(float(st[k]), st_j[k], rtol=1e-3,
+                                   err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["pt", "bdpt"])
+def test_one_lane_chunks_leave_the_camera_alone(integrator):
+    """A chunk of one path, whose broadcast camera origin is a contiguous
+    (1, 3) view of the camera's, through PT's and BDPT's kernels in turn:
+    the scene's camera keeps its bits, and a second render of the same
+    one-lane chunks gives the first one's bits and the torch route's."""
+    from tputracer_torch import accel
+    from tputracer_torch.integrators import pt
+    from tputracer_torch.integrators.bdpt import trace_bdpt
+    from tputracer_torch.scene.types import CAMERA_FIELDS
+
+    need_card()
+    sc = cornell_box("caustic", device="cuda")
+    cam = {f: getattr(sc.camera, f).clone() for f in CAMERA_FIELDS}
+    if integrator == "pt":
+        cfg = RenderConfig(width=4, height=4, spp=1, max_bounces=4)
+
+        def chunk(u, **hooks):
+            return pt.trace_radiance(sc, u, cfg, **hooks)[0]
+    else:
+        cfg = BdptConfig(width=4, height=4, spp=1, max_bounces=4)
+
+        def chunk(u, **hooks):
+            return trace_bdpt(sc, u, cfg, **hooks)[0]
+    uids = torch.arange(16, dtype=torch.int64, device="cuda")
+    with torch.no_grad():
+        first = torch.cat([chunk(u) for u in uids.split(1)])
+        again = torch.cat([chunk(u) for u in uids.split(1)])
+        plain = torch.cat([chunk(u, intersect_fn=accel.intersect)
+                           for u in uids.split(1)])
+    for f, x in cam.items():
+        assert torch.equal(getattr(sc.camera, f), x), f
+    assert torch.equal(first, again) and torch.equal(first, plain)
+    assert float(first.sum()) > 0.0
+
+
+@pytest.mark.cuda
+def test_walk_kernel_refuses_what_it_does_not_take():
+    """The wrapper refuses, before any launch, carry tensors that are not
+    contiguous or not of their dtype, and a closest hit that is not an
+    (n,) float32 t and int32 prim."""
+    from tputracer_torch import rng
+    from tputracer_torch.accel import closest
+    from tputracer_torch.integrators import bdpt_cuda
+
+    need_card()
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(width=64, height=64, spp=1, max_bounces=3)
+    n = 4096
+    f32 = dict(dtype=torch.float32, device="cuda")
+    uid = torch.arange(n, dtype=torch.int64, device="cuda")
+    o = torch.full((n, 3), 0.5, **f32)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), **f32), dim=-1)
+    start = (sc, o, d, torch.ones((n, 3), **f32), torch.ones((n,), **f32),
+             uid, cfg, 4, rng.SLOT_BSDF, None, True)
+    launches = LAUNCHES["walk_kernel"]
+    strided = torch.empty((n, 6), **f32)[:, :3]
+    for k, bad in ((2, strided), (3, start[3].double()),
+                   (4, start[4].half())):
+        with pytest.raises(ValueError, match="walk_cuda"):
+            bdpt_cuda.walk_cuda(*start[:k], bad, *start[k + 1:])
+    for hit in (lambda *a: (closest(*a)[0].double(), closest(*a)[1]),
+                lambda *a: (closest(*a)[0], closest(*a)[1].long())):
+        with pytest.raises(ValueError, match="walk_cuda: want (t|prim)"):
+            bdpt_cuda.walk_cuda(*start, closest=hit)
+    assert LAUNCHES["walk_kernel"] == launches
+
+
+@pytest.mark.cuda
+def test_graph_bdpt_walk_kernel_matches_eager_torch_walks(monkeypatch):
+    """trace_bdpt_rows of config 4's scene through graphs.call (eager
+    first call, the capture, a replay) takes the walk kernel, 10 launches
+    a chunk at 4 bounces that the graph holds as kernel nodes, and gives,
+    bit for bit, the per-path radiance and ray counts of the eager render
+    with the walks on the torch route; each chunk's walk spans count
+    kernel 1, and 0 on that route."""
+    from tputracer_torch import graphs, trace
+    from tputracer_torch.integrators import bdpt
+
+    need_card()
+    graphs.clear()
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(width=64, height=64, spp=4, max_bounces=4,
+                     chunk_size=1 << 13)
+    chunks = cfg.width * cfg.height * cfg.spp // cfg.chunk_size
+    walks = ("bdpt.eye_walk", "bdpt.light_walk")
+    for _ in range(3):
+        trace.reset()
+        before = LAUNCHES["walk_kernel"]
+        L_g, _, st_g = graphs.call("bdpt_rows",
+                                   lambda s: bdpt_through(s, cfg), sc, cfg)
+        torch.cuda.synchronize()
+        assert LAUNCHES["walk_kernel"] - before == 10 * chunks
+    assert graphs.graphs()[0].census["walk_kernel"] == 10 * chunks
+    with monkeypatch.context() as m:
+        m.setattr(bdpt, "walk_on_card", lambda *args: False)
+        trace.reset()
+        before = LAUNCHES["walk_kernel"]
+        L_e, _, st_e = bdpt_through(sc, cfg)
+        assert LAUNCHES["walk_kernel"] == before
+        for w in walks:
+            assert [r.counts["kernel"] for r in trace.records(w)] == \
+                [0] * chunks
+    assert torch.equal(L_g, L_e)
+    assert all(torch.equal(st_g[k], st_e[k]) for k in st_e)
+    graphs.clear()
+    trace.reset()
+    bdpt_through(sc, cfg)
+    for w in walks:
+        assert [r.counts["kernel"] for r in trace.records(w)] == [1] * chunks
+
+
+@pytest.mark.cuda
+def test_bdpt_gradient_walks_take_the_torch_route(monkeypatch):
+    """A BDPT gradient on the card (albedo and emission requiring grad)
+    walks on the torch route: no walk kernel, the kernel count 0 on every
+    walk span, and finite gradients that reach both tables."""
+    from tputracer_torch import api, trace
+    from tputracer_torch.integrators import bdpt, bdpt_cuda
+
+    need_card()
+    sc = cornell_box("caustic", device="cuda")
+    cfg = BdptConfig(width=32, height=32, spp=2, max_bounces=3)
+    target = torch.full((32, 32, 3), 0.05, device="cuda")
+    params = {k: getattr(sc, k).clone().requires_grad_()
+              for k in ("mat_albedo", "mat_emission")}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the walk kernel under a gradient")
+
+    trace.reset()
+    launches = LAUNCHES["walk_kernel"]
+    with monkeypatch.context() as m:
+        m.setattr(bdpt_cuda, "walk_cuda", refuse)
+        _, g = api._loss_and_grads(bdpt.render_bdpt, sc, params, target, cfg)
+    assert LAUNCHES["walk_kernel"] == launches
+    for w in ("bdpt.eye_walk", "bdpt.light_walk"):
+        assert [r.counts["kernel"] for r in trace.records(w)] == [0]
+    for k in params:
+        assert bool(torch.isfinite(g[k]).all()) and float(g[k].abs().sum()) > 0
+    trace.reset()

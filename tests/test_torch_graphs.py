@@ -250,6 +250,8 @@ def test_progressive_pass_matches_jax(offset, step):
      "int const*, float*)", "splat_finish_kernel"),
     ("(anonymous namespace)::uniform3_kernel(long long const*, long long, "
      "unsigned int, unsigned int, long long, float*)", "uniform3_kernel"),
+    ("_ZN12_GLOBAL__N_111walk_kernelE8WalkArgs", "walk_kernel"),
+    ("(anonymous namespace)::walk_kernel(WalkArgs)", "walk_kernel"),
     ("_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEE"
      "St5arrayIPcLm1EEEEviT0_T1_", None),
     ("void at::native::index_elementwise_kernel<128, 4>(long, "
@@ -258,7 +260,7 @@ def test_progressive_pass_matches_jax(offset, step):
 ])
 def test_kernel_of_names_the_wrappers_kernels(symbol, kernel):
     """A graph's kernel nodes and a trace's kernels are counted by kernel
-    from their symbols: the port's eleven kernels, mangled or demangled, by
+    from their symbols: the port's kernels, mangled or demangled, by
     their own names only."""
     assert graphs.kernel_of(symbol) == kernel
 
@@ -266,8 +268,8 @@ def test_kernel_of_names_the_wrappers_kernels(symbol, kernel):
 def test_kernels_map_to_the_wrappers_launch_counters():
     """Every kernel a library of cuda_build declares, mangled or
     demangled, is one graphs.kernel_of names, and no two libraries
-    declare the same kernel: the six libraries' thirteen kernels, all but
-    the connection table's fill counted in cuda_build.LAUNCHES."""
+    declare the same kernel: the seven libraries' fourteen kernels, all
+    but the connection table's fill counted in cuda_build.LAUNCHES."""
     from tputracer_torch import cuda_build, rng  # noqa: F401
     from tputracer_torch.accel import (intersect_cuda, pairs_cuda,  # noqa
                                        traverse_cuda)
@@ -275,10 +277,10 @@ def test_kernels_map_to_the_wrappers_launch_counters():
 
     declared = [k for lib in cuda_build.LIBRARIES.values()
                 for k in lib.kernels()]
-    assert len(declared) == len(set(declared)) == 13
+    assert len(declared) == len(set(declared)) == 14
     assert sorted(cuda_build.LIBRARIES) == ["connect.cu", "intersect.cu",
                                             "pairs.cu", "pt.cu", "rng.cu",
-                                            "traverse.cu"]
+                                            "traverse.cu", "walk.cu"]
     for k in declared:
         assert graphs.kernel_of(f"_ZN12_GLOBAL__N_1{len(k)}{k}Ev") == k
         assert graphs.kernel_of(f"(anonymous namespace)::{k}(int)") == k

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from golden.tolerance import golden_compare
 from tputracer import bsdf as jbsdf
 from tputracer import lights as jlights
 from tputracer.api import render as jax_render
@@ -32,15 +33,6 @@ from tputracer_torch.scene import cornell_box, mesh_scene
 @pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     torch.set_num_threads(2)
-
-
-def golden_compare(img, ref):
-    err = np.abs(img - ref)
-    rel = err / (1.0 + np.abs(ref))
-    frac_bad = float((rel > 5e-3).mean())
-    assert float(rel.mean()) < 5e-4, f"mean rel err {rel.mean():.2e}"
-    assert frac_bad < 0.01, f"outlier fraction {frac_bad:.3f}"
-    assert img.mean() > 1e-3
 
 
 GOLDEN = [

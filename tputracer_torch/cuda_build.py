@@ -206,6 +206,15 @@ def check(who, name, t, dtype, shape, device):
     return t.data_ptr()
 
 
+def owned(t):
+    """``t`` itself where it is contiguous and no view of another tensor,
+    else a contiguous copy: a tensor that a kernel may write in place
+    without writing through into memory its caller did not hand over."""
+    if t._base is not None or not t.is_contiguous():
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
 def scratch(who, name, device, n, dtype, fill=None):
     """The scratch ``name`` of ``device``'s current stream: at least ``n``
     entries of ``dtype``, made (filled with ``fill``, or left

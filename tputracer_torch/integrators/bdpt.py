@@ -13,10 +13,12 @@ BASELINE config 4 (the caustics scene).  For a chunk of paths:
     onto the film with ``index_add_`` into an (H*W + 1, 3) buffer whose
     last row takes the masked lanes.
 
-On the card (:func:`bdpt_on_card`) each of the last two is two CUDA
-kernels a chunk around the same shadow-ray calls
-(``integrators/bdpt_cuda.py``, ``csrc/connect.cu``), with the same bits
-and, for the splats, float atomics into an (H*W, 3) film.
+On the card each walk is one CUDA kernel a vertex after its closest-hit
+call (:func:`walk_on_card`; ``csrc/walk.cu``), and each of the last two
+is two CUDA kernels a chunk around the same shadow-ray calls
+(:func:`bdpt_on_card`; ``csrc/connect.cu``), all launched by
+``integrators/bdpt_cuda.py``, with the same bits and, for the splats,
+float atomics into an (H*W, 3) film.
 
 MIS follows the area-measure formulation (Veach '97 ch. 10): the weight of
 strategy (s, t) is 1 / (1 + sum_i prod ratios), delta vertices contribute
@@ -34,10 +36,9 @@ radiance ``L_own`` may not.
 A chunk's five phases are spans (``tputracer_torch.trace.phase``):
 ``bdpt.eye_walk`` and ``bdpt.light_walk`` (count ``verts``), ``bdpt.s0``,
 ``bdpt.connect`` and ``bdpt.splat`` (count ``strategies``), each with the
-count ``lanes``, and ``bdpt.connect`` and ``bdpt.splat`` with ``kernel``
-(1 on the card's route, 0 on the torch route); inside a CUDA graph's
-capture each also leaves event nodes that time it on the device at every
-replay.
+count ``lanes``, and all but ``bdpt.s0`` with ``kernel`` (1 on the card's
+route, 0 on the torch route); inside a CUDA graph's capture each also
+leaves event nodes that time it on the device at every replay.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from tputracer_torch.integrators import bdpt_cuda
 from tputracer_torch.integrators.pt import camera_rays, film_from_radiance
 from tputracer_torch.lights import pdf_light_area, sample_light
 from tputracer_torch.lookup import fetch_int
-from tputracer_torch.scene.types import DIFFUSE, wants_grad
+from tputracer_torch.scene.types import DIFFUSE, kernel_route
 from tputracer_torch.trace import phase
 
 _BIG = 3.0e38
@@ -105,9 +106,38 @@ def _camera_pdf_sa(cam, d):
     return 1.0 / (_camera_area(cam) * cos**3)
 
 
+def walk_on_card(scene, uid, isect=None):
+    """Whether :func:`_walk` takes the card's kernel
+    (``scene.kernel_route``): uids on a CUDA device, the default
+    intersector and no gradient wanted.  CPU uids, an injected
+    intersector, and a call with grad enabled where a scene or camera
+    tensor requires grad, take :func:`_walk_plain` (the kernel has no
+    backward); any other device raises."""
+    return kernel_route(scene, uid.device, "BDPT walk", isect)
+
+
 def _walk(scene, o, d, beta, pdf_sa, uid, cfg, n_verts, slot, origin,
           transport_radiance, start_p=None, isect=None, stats_acc=None):
     """Random walk of up to n_verts surface vertices; returns vertex list.
+    On the card's route (:func:`walk_on_card`) one CUDA kernel a vertex
+    after its closest hit (``bdpt_cuda.walk_cuda``, which updates ``o``,
+    ``d`` and ``pdf_sa`` in place), elsewhere :func:`_walk_plain`; the
+    same bits on every valid lane either way."""
+    if walk_on_card(scene, uid, isect):
+        return bdpt_cuda.walk_cuda(
+            scene, o, d, beta, pdf_sa, uid, cfg, n_verts, slot, origin,
+            transport_radiance, start_p=start_p, stats_acc=stats_acc)
+    return _walk_plain(scene, o, d, beta, pdf_sa, uid, cfg, n_verts, slot,
+                       origin, transport_radiance, start_p=start_p,
+                       isect=isect, stats_acc=stats_acc)
+
+
+def _walk_plain(scene, o, d, beta, pdf_sa, uid, cfg, n_verts, slot, origin,
+                transport_radiance, start_p=None, isect=None,
+                stats_acc=None):
+    """Random walk of up to n_verts surface vertices; returns vertex list.
+    The CPU, gradient and injected-intersector route, and the oracle of
+    the card's kernel.
 
     Each vertex is a dict of (N,)-leading SoA tensors: p, ng, wo (unit
     toward predecessor), beta (throughput ARRIVING at the vertex), pdf_fwd
@@ -328,18 +358,13 @@ def s0_radiance(scene, cfg, zs):
 
 def bdpt_on_card(scene, ys, zs):
     """Whether :func:`connection_radiance` and :func:`t1_splats` take the
-    card's kernels: vertices on a CUDA device and no gradient wanted.  CPU
-    vertices, and a call with grad enabled where a vertex tensor or a
-    scene or camera tensor requires grad (``scene.wants_grad``), take the
+    card's kernels (``scene.kernel_route``): vertices on a CUDA device and
+    no gradient wanted.  CPU vertices, and a call with grad enabled where
+    a vertex tensor or a scene or camera tensor requires grad, take the
     torch versions (the kernels have no backward); any other device
     raises."""
-    dev = zs[0]["beta"].device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"no BDPT kernel route for device {dev}")
-    return not (wants_grad(scene) or (torch.is_grad_enabled() and any(
-        x.requires_grad for v in zs + ys for x in v.values())))
+    return kernel_route(scene, zs[0]["beta"].device, "BDPT kernel",
+                        tensors=(x for v in zs + ys for x in v.values()))
 
 
 def connection_radiance(scene, cfg, ys, zs, occl=None, stats_acc=None):
@@ -490,10 +515,11 @@ def trace_bdpt(scene, uid, cfg, intersect_fn=None, occluded_fn=None):
     """
     acc = {}
     n = uid.shape[0]
-    with phase("bdpt.eye_walk", lanes=n) as rec:
+    walk_kernel = int(walk_on_card(scene, uid, intersect_fn))
+    with phase("bdpt.eye_walk", lanes=n, kernel=walk_kernel) as rec:
         zs = eye_subpaths(scene, uid, cfg, isect=intersect_fn, stats_acc=acc)
         rec.add(verts=len(zs))
-    with phase("bdpt.light_walk", lanes=n) as rec:
+    with phase("bdpt.light_walk", lanes=n, kernel=walk_kernel) as rec:
         ys = light_subpaths(scene, uid, cfg, isect=intersect_fn,
                             stats_acc=acc)
         rec.add(verts=len(ys))

@@ -1,5 +1,12 @@
-"""BDPT's connection and t = 1 strategies on the card: ``csrc/connect.cu``.
+"""BDPT on the card: the walks (``csrc/walk.cu``), the connection and
+t = 1 strategies (``csrc/connect.cu``).
 
+:func:`walk_cuda` computes what ``bdpt._walk_plain`` computes, an eye or a
+light walk of a chunk, in one kernel a vertex after its closest-hit call
+(``accel.closest``'s (t, prim)): ``walk_kernel`` writes the vertex's SoA
+straight into its vertex tensors, the previous vertex's ``pdf_rev``, the
+next vertex's throughput and the next ray, in place, and counts the
+vertex's closest-hit rays.
 :func:`connection_radiance_cuda` computes what
 ``bdpt.connection_radiance_plain`` computes, the s >= 1, t >= 2
 strategies' radiance of a chunk, in two kernels around the shadow rays:
@@ -16,9 +23,11 @@ atomics.  The kernels read the walks' vertex tensors in place, through a
 table of their pointers that a small kernel (``connect_table_kernel``)
 fills on the device, and the camera from its tensors.
 
+``bdpt._walk`` routes (``bdpt.walk_on_card``): uids on a CUDA device with
+no gradient wanted and the default intersector come here.
 ``bdpt.connection_radiance`` and ``bdpt.t1_splats`` route
 (``bdpt.bdpt_on_card``): vertices on a CUDA device with no gradient
-wanted come here; CPU vertices, and gradient calls, take the torch
+wanted come here.  CPU tensors, and gradient calls, take the torch
 versions, which are also the kernels' oracles.  The kernels have no
 backward.  Built at first use (``cuda_build``), never at import.
 """
@@ -29,7 +38,7 @@ import ctypes
 
 import torch
 
-from tputracer_torch.cuda_build import Library, check
+from tputracer_torch.cuda_build import Library, check, owned
 from tputracer_torch.scene.types import CAMERA_FIELDS
 
 # the vertex fields in the table's order (csrc/connect.cu's Field), with
@@ -74,6 +83,121 @@ LIB = Library("connect.cu", "tpt_connect_error_string", {
                           _p, _p, _p, _p, _p, _p, _p, _p],
                          ["splat_finish_kernel"])},
     uncounted=["connect_table_kernel"])
+
+
+_BIG = 3.0e38    # bdpt._BIG: a live lane's closest-hit tmax
+_WALK = "walk_cuda"
+# the scene's tables the walk kernel reads, with each one's dtype and
+# trailing shape; the leading dimension is the table's own
+WALK_TABLES = {"tri_n": (torch.float32, (3,)), "tri_mat": (torch.int32, ()),
+               "sph_c": (torch.float32, (3,)), "sph_r": (torch.float32, ()),
+               "sph_mat": (torch.int32, ()), "mat_kind": (torch.int32, ()),
+               "mat_albedo": (torch.float32, (3,)),
+               "mat_ior": (torch.float32, ())}
+# a walk vertex's fields in bdpt._walk_plain's order, each (n,) + trailing
+VERTEX = {"p": (torch.float32, (3,)), "ng": (torch.float32, (3,)),
+          "wo": (torch.float32, (3,)), "beta": (torch.float32, (3,)),
+          "pdf_fwd": (torch.float32, ()), "pdf_rev": (torch.float32, ()),
+          "mat": (torch.int32, ()), "prim": (torch.int32, ()),
+          "delta": (torch.bool, ()), "valid": (torch.bool, ())}
+
+
+class WalkArgs(ctypes.Structure):
+    """csrc/walk.cu's ``WalkArgs``, field for field."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in (
+        *WALK_TABLES, "uid", "hit_t", "hit_prim", "o", "d", "pdf_sa", "alive",
+        "tmax", "prev_p", "prev_ng", "prev_pdf_rev", "beta", "beta_next", "p",
+        "ng", "wo", "pdf_fwd", "pdf_rev", "mat", "prim", "delta", "valid",
+        "count")]
+        + [("n", ctypes.c_longlong)]
+        + [(k, ctypes.c_int) for k in ("n_tri_pad", "last", "transport")]
+        + [(k, ctypes.c_uint) for k in ("salt", "seed")]
+        + [("eps", ctypes.c_float)])
+
+
+WALK_LIB = Library("walk.cu", "tpt_walk_error_string", {
+    "tpt_walk": ([ctypes.POINTER(WalkArgs)], ["walk_kernel"])})
+
+
+def walk_cuda(scene, o, d, beta, pdf_sa, uid, cfg, n_verts, slot, origin,
+              transport_radiance, start_p=None, stats_acc=None,
+              closest=None):
+    """``bdpt._walk_plain`` on the card: the walk's ``n_verts`` vertex
+    dicts, one ``walk_kernel`` launch a vertex after ``closest``'s
+    (t, prim) (default ``accel.closest``).  Every field of a valid lane is
+    the torch version's bits, and so are valid, delta, pdf_fwd, pdf_rev,
+    mat and prim on every lane; p, ng, wo and the next vertex's beta are
+    zeros on lanes not valid at their vertex (csrc/walk.cu);
+    ``origin["pdf_rev"]`` is written in place where the torch version
+    replaces it.  ``o``, ``d`` and ``pdf_sa`` are the walk's carry,
+    updated in place (``o`` copied first where it is a view or not
+    contiguous: ``cuda_build.owned``), ``beta``
+    the first vertex's throughput, and ``start_p`` (default ``o``) the
+    point ``d`` leaves from, with an origin its point.
+    ``stats_acc["rays_closest"]`` gains each vertex's closest-hit rays, a
+    vertex at a time as the torch version adds them.  Raises ValueError,
+    before any build or launch, on a tensor the kernel does not take (each
+    on one device, contiguous, of its dtype and shape, and that device a
+    CUDA one)."""
+    from tputracer_torch import rng
+    from tputracer_torch.accel import closest as closest_hit
+
+    closest = closest_hit if closest is None else closest
+    dev, n = uid.device, uid.shape[0]
+    a = WalkArgs()
+    for name, (dtype, tail) in WALK_TABLES.items():
+        t = getattr(scene, name)
+        setattr(a, name, check(_WALK, name, t, dtype, t.shape[:1] + tail, dev))
+    o = owned(o)
+    start_p = o if start_p is None else start_p
+    a.uid = check(_WALK, "uid", uid, torch.int64, (n,), dev)
+    vec, one = (n, 3), (n,)
+    for name, x, shape in (("o", o, vec), ("d", d, vec), ("beta", beta, vec),
+                           ("pdf_sa", pdf_sa, one), ("start_p", start_p, vec)):
+        check(_WALK, name, x, torch.float32, shape, dev)
+    if origin is not None:
+        for name in ("p", "ng", "pdf_rev"):
+            dtype, tail = VERTEX[name]
+            check(_WALK, f"the origin's {name}", origin[name], dtype,
+                  (n,) + tail, dev)
+        if origin["p"] is not start_p:
+            raise ValueError(f"{_WALK}: the origin's point is not start_p")
+    if dev.type != "cuda":
+        raise ValueError(f"{_WALK}: want CUDA tensors, got {dev}")
+    alive = torch.ones(one, dtype=torch.bool, device=dev)
+    tmin = torch.zeros(one, dtype=torch.float32, device=dev)
+    tmax = torch.full(one, _BIG, dtype=torch.float32, device=dev)
+    counts = torch.zeros((n_verts,), dtype=torch.int32, device=dev)
+    verts = [{k: beta if (i, k) == (0, "beta") else torch.empty(
+        (n,) + tail, dtype=dtype, device=dev)
+        for k, (dtype, tail) in VERTEX.items()} for i in range(n_verts)]
+    a.o, a.d, a.pdf_sa = o.data_ptr(), d.data_ptr(), pdf_sa.data_ptr()
+    a.alive, a.tmax = alive.data_ptr(), tmax.data_ptr()
+    a.n, a.n_tri_pad, a.transport = n, scene.n_tri_pad, int(
+        bool(transport_radiance))
+    a.seed, a.eps = int(cfg.seed) & 0xFFFFFFFF, scene.eps
+    prev, prev_p = origin, start_p
+    for i, v in enumerate(verts):
+        t, prim = closest(scene, o, d, tmin, tmax)
+        a.hit_t = check(_WALK, "t", t, torch.float32, one, dev)
+        a.hit_prim = check(_WALK, "prim", prim, torch.int32, one, dev)
+        a.prev_p = prev_p.data_ptr()
+        a.prev_ng = None if prev is None else prev["ng"].data_ptr()
+        a.prev_pdf_rev = None if prev is None else prev["pdf_rev"].data_ptr()
+        a.last = int(i == n_verts - 1)
+        a.beta_next = None if a.last else verts[i + 1]["beta"].data_ptr()
+        for k, x in v.items():
+            setattr(a, k, x.data_ptr())
+        a.count = counts[i].data_ptr()
+        a.salt = rng.salt(i, slot)
+        WALK_LIB.launch("tpt_walk", dev, ctypes.byref(a))
+        prev, prev_p = v, v["p"]
+    if stats_acc is not None:
+        for count in counts.to(torch.float32):
+            stats_acc["rays_closest"] = (stats_acc.get("rays_closest", 0.0)
+                                         + count)
+    return verts
 
 
 def strategies(n_eye, n_light, n_verts):

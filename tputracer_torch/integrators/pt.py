@@ -51,7 +51,7 @@ from tputracer_torch.bsdf import (emitted, eval_bsdf, nee_nonspecular,
                                   pdf_bsdf, sample_bsdf)
 from tputracer_torch.integrators import pt_cuda
 from tputracer_torch.lights import pdf_light_area, sample_light
-from tputracer_torch.scene.types import wants_grad
+from tputracer_torch.scene.types import kernel_route
 from tputracer_torch.trace import device_count, phase, span
 
 _BIG = 3.0e38
@@ -78,7 +78,10 @@ def camera_rays(scene, uid, cfg):
         + v[:, None] * cam.dv[None, :]
         - cam.o[None, :]
     )
-    o = cam.o[None, :].expand(d.shape)
+    # the origins' own memory, not a view of the camera's: the card's
+    # kernels update the ray carry in place
+    o = cam.o[None, :].expand(d.shape).clone(
+        memory_format=torch.contiguous_format)
     return o, d
 
 
@@ -98,22 +101,15 @@ def _coherence_key(scene, o, d, alive):
 
 def pt_on_card(scene, uid, decision_scene=None, intersect_fn=None,
                occluded_fn=None):
-    """Whether :func:`trace_radiance` takes the card's kernels: uids on a
-    CUDA device, no ``decision_scene``, the default intersectors and no
+    """Whether :func:`trace_radiance` takes the card's kernels
+    (``scene.kernel_route``): uids on a CUDA device, no ``decision_scene``, the default intersectors and no
     gradient wanted.  CPU uids, and a call with grad enabled where a
     scene or camera tensor requires grad, a ``decision_scene`` or an
     injected intersector, take :func:`_bounce_step_plain` (the kernels
     have no backward, and decide with ``scene`` alone); any other device
     raises."""
-    dev = uid.device
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"no PT kernel route for device {dev}")
-    if (decision_scene is not None or intersect_fn is not None
-            or occluded_fn is not None):
-        return False
-    return not wants_grad(scene)
+    return kernel_route(scene, uid.device, "PT kernel", decision_scene,
+                        intersect_fn, occluded_fn)
 
 
 def _bounce_step_plain(scene, decision_scene, uid, carry, *, b, cfg, isect,

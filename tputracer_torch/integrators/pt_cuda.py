@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from tputracer_torch.cuda_build import Library, check
+from tputracer_torch.cuda_build import Library, check, owned
 
 _BIG = 3.0e38
 _WHO = "bounce_cuda"
@@ -114,7 +114,8 @@ class Wavefront:
 
 def bounce_cuda(wave, uid, carry, *, b, closest=None, occl=None):
     """``pt._bounce_step_plain``'s bounce ``b`` on the card, the carry
-    updated in place (``o`` made contiguous first if it is not): returns
+    updated in place (``o`` copied first where it is a view or not
+    contiguous: ``cuda_build.owned``): returns
     (carry, (rays_issued, n_active, rays_shadow)), the counts 0-d int32
     views of ``wave.counts`` (rays_shadow None on the last bounce).
     ``closest`` (default ``accel.closest``) gives the closest hit's
@@ -127,8 +128,7 @@ def bounce_cuda(wave, uid, carry, *, b, closest=None, occl=None):
     occl = occluded if occl is None else occl
     a, dev, n = wave.args, wave.device, wave.n
     o, d, L, thr, alive, prev_delta, prev_pdf = carry
-    if not o.is_contiguous():    # camera_rays' origins broadcast the camera's
-        o = o.contiguous()
+    o = owned(o)
     carry = (o, d, L, thr, alive, prev_delta, prev_pdf)
     check(_WHO, "uid", uid, torch.int64, (n,), dev)
     a.uid = uid.data_ptr()

@@ -4,6 +4,7 @@ from tputracer_torch.scene.types import (  # noqa: F401
     MIRROR,
     Camera,
     Scene,
+    kernel_route,
     make_camera,
     make_scene,
     scene_from_numpy,

@@ -138,6 +138,23 @@ def wants_grad(scene):
         + [getattr(cam, f) for f in CAMERA_FIELDS])
 
 
+def kernel_route(scene, device, what, *hooks, tensors=()):
+    """Whether a call on ``scene`` with tensors on ``device`` takes the
+    card's hand-written kernels: a CUDA device, no hook injected (every one
+    of ``hooks`` None) and no gradient wanted (:func:`wants_grad`, or grad
+    enabled and one of ``tensors`` requiring grad).  CPU calls take the
+    torch route; any other device raises ValueError naming ``what``'s
+    route."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"no {what} route for device {device}")
+    if any(h is not None for h in hooks):
+        return False
+    return not (wants_grad(scene) or (torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors)))
+
+
 def _tensor(x, dtype, device):
     # np.array copies: the source may be a read-only view (a JAX leaf)
     return torch.from_numpy(np.array(x, dtype=dtype, order="C")).to(device)
